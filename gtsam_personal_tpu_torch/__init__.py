@@ -1,0 +1,12 @@
+"""gtsam_personal_tpu_torch — the PyTorch/CUDA port of gtsam_personal_tpu.
+
+The port runs the bundle-adjustment Levenberg-Marquardt main path
+(`sfm/ba_pack.py:ba_lm_run_pk`) on one NVIDIA H100, with the landmark 3x3
+block solve as a hand-written CUDA kernel (`ops/block_solve.py`,
+`csrc/landmark_block_solve.cu`). The JAX package `gtsam_personal_tpu` is the
+reference it is tested against; this package imports torch and never jax.
+
+Importing the package loads nothing heavy: import the submodules you need.
+"""
+
+__version__ = "0.1.0"
