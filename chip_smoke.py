@@ -8,8 +8,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      power limit as nvidia-smi reports them;
   2. build the CUDA kernel from csrc/ with nvcc for sm_90a (set-up time);
   3. hold the kernel against its plain torch version on the card at
-     P = 156000 and P = 77 in float64 and float32, and time both at
-     P = 156000 in float32 with CUDA events;
+     P = 156000 and P = 77 in float64 and float32, and time both, and
+     `torch.linalg.solve` on the same blocks as [P, 3, 3], at P = 156000 in
+     float32: the device time of each from a `torch.profiler` pass over 200
+     calls (the `ms` figures of the kernels record), and the time per call
+     of the host's launch path with CUDA events around 200 calls;
   4. one LM step and 5 LM iterations on a 29-camera problem in float64, on
      the card and on the CPU: the two must agree;
   5. the main path at full size: bundle adjustment LM on the skewed
@@ -17,7 +20,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      ~529k observations) in float32, lambda0 = 1e-3, 2 CG iterations, one
      warm-up run of 10 iterations, then 10 timed iterations, under the
      gates of bench.py: the error is finite, it decreases, and the rms
-     reprojection error is below 1.3 px.
+     reprojection error is below 1.3 px;
+  6. the pose-graph path at a small size in float64 (300-pose Manhattan
+     world, parts of at most 32 poses): one partitioned-Schur solve and 6 LM
+     iterations on the card and on the CPU must agree, and on the card the
+     partitioned solve must equal the dense solve; then a 40-pose SE(3)
+     graph through the dense solver, float64 card against CPU and float32
+     on the card;
+  7. the pose-graph path at full size: batch LM on a 10000-pose Manhattan
+     world with loop closures from its odometry-composed start, partitioned
+     Schur solver with parts of at most 256 poses, lambda0 = 1e-5, 12
+     iterations (the values of bench.py's pose-graph metric), in float32
+     and in float64, one warm-up run and three timed runs each; gates: the error is finite and
+     decreases, the same run in float64 ends within 1e-3 relative of the
+     float32 error, and the aligned ATE rmse against the truth is below
+     0.5 m.
 
 The last two lines are a JSON record of the kernels
 ({"kernels": [...]}, with the launch count from the timed run of phase 5)
@@ -32,16 +49,32 @@ import time
 import numpy as np
 import torch
 
-from gtsam_personal_tpu_torch import config
+from gtsam_personal_tpu_torch import config, native
+from gtsam_personal_tpu_torch.core.graph import GraphBuilder
+from gtsam_personal_tpu_torch.core.values import Layout, values_from_numpy
+from gtsam_personal_tpu_torch.geometry import se3
+from gtsam_personal_tpu_torch.linear import schur, solvers
+from gtsam_personal_tpu_torch.linear.linearize import linearize
+from gtsam_personal_tpu_torch.nonlinear import optimizers
 from gtsam_personal_tpu_torch.ops import _build
 from gtsam_personal_tpu_torch.ops.block_solve import (
     landmark_block_solve, landmark_block_solve_ref)
 from gtsam_personal_tpu_torch.sfm import ba, ba_pack, synthetic
+from gtsam_personal_tpu_torch.slam import factors as F, manhattan, metrics
+from gtsam_personal_tpu_torch.tools.profile_pose_graph import (
+    POSE_ITERS, POSE_LAM0, POSE_N, POSE_PART, device_ms_per_call)
 
 KERNEL_SOURCE = "gtsam_personal_tpu_torch/csrc/landmark_block_solve.cu"
 KERNEL_REPLACES = "gtsam_personal_tpu/ops/pallas_kernels.py:23"
 P_FULL = 156000
 RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# arithmetic of one block solve: 3x3 cofactors, determinant, reciprocal,
+# scaled inverse (6 unique entries) and the product with t
+BLOCK_SOLVE_FLOPS = 56
 
 
 def card_line() -> str:
@@ -66,7 +99,9 @@ def _blocks(P, lam, dtype, dev, seed):
 
 
 def _time_ms(fn, n=200):
-    """Mean milliseconds per call over n calls, by CUDA events."""
+    """Mean milliseconds per call over n calls, by CUDA events: for a
+    kernel of a few microseconds this is the host's launch path, not the
+    kernel."""
     for _ in range(10):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -89,9 +124,20 @@ def phase_build():
             print(f"[2]   ptxas: {line.strip()}")
 
 
+def block_solve_bound(P, itemsize):
+    """(bound_ms, bound_by) of one landmark block solve: the larger of the
+    bytes it must move over the HBM rate (6 rows of Hpp and 3 of t read, 3
+    of u written, each once) and its operations over the float32 rate."""
+    by_bytes = 12 * P * itemsize / HBM_BYTES_PER_S * 1e3
+    by_ops = BLOCK_SOLVE_FLOPS * P / FP32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
+
+
 def phase_kernel(dev):
-    """Kernel == plain version on the card; returns (max_abs_err, ms,
-    plain_ms) at P = 156000 in float32."""
+    """Kernel == plain version on the card; returns the kernel's record at
+    P = 156000 in float32: max_abs_err, the device times ms, plain_ms and
+    library_ms, and the bound."""
     errs = {}
     for dtype in (torch.float64, torch.float32):
         for P, lam, seed in ((P_FULL, 1e-3, 0), (77, 0.0, 1)):
@@ -105,16 +151,44 @@ def phase_kernel(dev):
             print(f"[3] {str(dtype)[6:]:7s} P={P:6d}: max |kernel - plain| "
                   f"= {err:.3e} (rtol {RTOL[dtype]:g})")
     H, t, lam_t = _blocks(P_FULL, 1e-3, torch.float32, dev, 0)
-    fns = {"kernel": landmark_block_solve, "plain": landmark_block_solve_ref}
-    readings = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = fns[name]
-        readings[name].append(_time_ms(lambda: fn(H, t, lam_t)))
-    ms, plain_ms = (float(np.mean(readings[k])) for k in ("kernel", "plain"))
-    print(f"[3] float32 P={P_FULL}: kernel {ms * 1e3:.2f} us/call, plain "
-          f"torch {plain_ms * 1e3:.2f} us/call (CUDA events, mean of 200 "
-          f"calls; readings in ms {readings})")
-    return errs[(torch.float32, P_FULL)], ms, plain_ms
+    # the one library call that computes the same function: a batched LU
+    # solve of the damped blocks as [P, 3, 3]; timed here, used nowhere
+    A = (H.T.reshape(P_FULL, 3, 3)
+         + lam_t * torch.eye(3, device=dev)).contiguous()
+    b = t.T.contiguous()[..., None]
+    u_lib = torch.linalg.solve(A, b)[..., 0].T
+    torch.testing.assert_close(u_lib, landmark_block_solve(H, t, lam_t),
+                               rtol=1e-3, atol=1e-5)
+    fns = {"kernel": lambda: landmark_block_solve(H, t, lam_t),
+           "plain": lambda: landmark_block_solve_ref(H, t, lam_t),
+           "library": lambda: torch.linalg.solve(A, b)}
+    readings = {k: [] for k in fns}
+    for name in ("plain", "library", "kernel", "kernel", "library", "plain"):
+        readings[name].append(_time_ms(fns[name]))
+    print(f"[3] float32 P={P_FULL}, launch path (CUDA events around 200 "
+          f"calls, host-bound, ms per call): {readings}")
+    device = {k: device_ms_per_call(fns[k], 200)
+              for k in ("plain", "library", "kernel")}
+    (ms, n_k), (plain_ms, n_p), (library_ms, n_l) = (
+        device[k] for k in ("kernel", "plain", "library"))
+    if n_k < 1 or not ms > 0:
+        raise RuntimeError(f"the profiler saw {n_k} device events and "
+                           f"{ms} ms per call of the kernel; expected one "
+                           f"event of positive time")
+    bound_ms, bound_by = block_solve_bound(P_FULL, 4)
+    print(f"[3] float32 P={P_FULL}, device time per call (torch.profiler, "
+          f"200 calls): kernel {ms * 1e3:.2f} us in {n_k:g} kernel, plain "
+          f"torch {plain_ms * 1e3:.2f} us in {n_p:g}, torch.linalg.solve on "
+          f"[P, 3, 3] {library_ms * 1e3:.2f} us in {n_l:g}; kernel at "
+          f"{100 * bound_ms / ms:.0f}% of its bound")
+    print(f"[3] bound: {12 * P_FULL * 4 / 1e6:.2f} MB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bound_ms * 1e3:.2f} us "
+          f"(by {bound_by}; {BLOCK_SOLVE_FLOPS} flop per block at "
+          f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s = "
+          f"{BLOCK_SOLVE_FLOPS * P_FULL / FP32_FLOP_PER_S * 1e6:.2f} us)")
+    return {"max_abs_err": errs[(torch.float32, P_FULL)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def phase_parity(dev):
@@ -191,23 +265,186 @@ def phase_main(dev):
     return launches
 
 
+def _pose_graph_run(graph, initial, plan, lam0, n_iters):
+    """(values, lam, err, err0) of `n_iters` LM iterations with the
+    partitioned-Schur solver."""
+    err0 = optimizers.graph_error(graph, initial)
+    v, lam, err = optimizers.lm_run(
+        graph, initial, lam0, err0, n_iters,
+        optimizers.Params(solver="schur"), plan)
+    return v, lam, err, err0
+
+
+def phase_pose_parity(dev):
+    """The float64 pose-graph path on the card against the CPU, and the
+    partitioned solve against the dense solve on the card."""
+    n, part = 300, 32
+    # From lambda0 = 1e2 each of the 6 iterations lowers the error by far
+    # more than rounding, so card and CPU take the same accept/reject
+    # decisions; from 1e-5 this graph converges to the last bit within 5,
+    # and a later decision compares errors that differ by rounding alone.
+    lam0, iters = 1e2, 6
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        graph, initial, _ = manhattan.make_manhattan(
+            n, seed=3, device=d, dtype=torch.float64)
+        plan = schur.make_plan(graph, {"se2": n}, max_part_size=part)
+        lin = linearize(graph, initial)
+        step = schur.solve_partitioned(lin, plan, 1e-3)["se2"]
+        if d.type == "cuda":
+            dense = solvers.solve_dense(lin, Layout.of(initial), 1e-3)["se2"]
+            torch.testing.assert_close(step, dense, rtol=0.0, atol=1e-8)
+            gap = (step - dense).abs().max().item()
+        v, lam, err, _ = _pose_graph_run(graph, initial, plan, lam0, iters)
+        out[d.type] = [x.cpu() for x in (step, v["se2"], lam, err)]
+    for name, a, b in zip(("step", "poses", "lam", "err"), out["cuda"],
+                          out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, msg=name)
+    print(f"[6] {n}-pose float64 graph, {plan.stats()}: partitioned solve "
+          f"and {iters} LM iterations, card == CPU to rtol 1e-9 (err "
+          f"{float(out['cuda'][3]):.10g}, lam {float(out['cuda'][2]):g}); "
+          f"on the card max |partitioned - dense| = {gap:.2e} (atol 1e-8)")
+
+
+def _se3_chain(n, device, dtype):
+    """A seeded SE(3) graph: prior, noisy odometry and loop closures every
+    fifth pose, started from perturbed poses."""
+    rng = np.random.default_rng(11)
+
+    def t64(a):
+        return torch.tensor(a, dtype=torch.float64)
+    truth = se3.expmap(t64(np.concatenate(
+        [0.4 * rng.normal(size=(n, 3)), 3.0 * rng.normal(size=(n, 3))], 1)))
+    gb = GraphBuilder()
+    F.add_prior(gb, "se3", 0, truth[0].numpy(),
+                F.diag_noise([0.01] * 3 + [0.05] * 3))
+    for i, j in [(i, i + 1) for i in range(n - 1)] + [
+            (i, i + 7) for i in range(0, n - 7, 5)]:
+        rel = se3.retract(se3.between(truth[i], truth[j]),
+                          t64(0.01 * rng.normal(size=6)))
+        F.add_between(gb, "se3", i, j, rel.numpy(),
+                      F.diag_noise([0.02] * 3 + [0.1] * 3))
+    init = se3.retract(truth, t64(0.05 * rng.normal(size=(n, 6))))
+    return (gb.build(device=device, dtype=dtype),
+            values_from_numpy({"se3": init.numpy()}, device=device,
+                              dtype=dtype))
+
+
+def phase_se3_parity(dev):
+    """SE(3) through the manifold registry on the card: 5 dense LM
+    iterations in float64 against the CPU, and float32 Jacobians that stay
+    float32 through SE(3)'s matrix products."""
+    n, iters = 40, 5
+    params = optimizers.Params(solver="dense")
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        graph, initial = _se3_chain(n, d, torch.float64)
+        err0 = optimizers.graph_error(graph, initial)
+        v, lam, err = optimizers.lm_run(graph, initial, 1e-3, err0, iters,
+                                        params)
+        out[d.type] = [x.cpu() for x in (v["se3"], lam, err, err0)]
+    for name, a, b in zip(("poses", "lam", "err", "err0"), out["cuda"],
+                          out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12, msg=name)
+    graph, initial = _se3_chain(n, dev, torch.float32)
+    lin = linearize(graph, initial)
+    if any(J.dtype != torch.float32 for b in lin.batches for J in b.Js):
+        raise RuntimeError("float32 SE(3) Jacobians are not float32")
+    err0 = optimizers.graph_error(graph, initial)
+    _, _, err32 = optimizers.lm_run(graph, initial, 1e-3, err0, iters, params)
+    e64 = float(out["cuda"][2])
+    if not abs(float(err32) - e64) <= 1e-2 * e64:
+        raise RuntimeError(f"float32 SE(3) error {float(err32)} is not "
+                           f"within 1e-2 relative of float64 {e64}")
+    print(f"[6] {n}-pose SE(3) graph, {graph.num_factors} factors, {iters} "
+          f"dense LM iterations: float64 card == CPU to rtol 1e-9 (err "
+          f"{float(out['cuda'][3]):.6g} -> {e64:.10g}); float32 on the card "
+          f"ends at {float(err32):.6g}")
+
+
+def phase_pose_main(dev):
+    """Batch LM on the 10000-pose graph under its gates."""
+    n, part, lam0, iters = POSE_N, POSE_PART, POSE_LAM0, POSE_ITERS
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        graph, initial, truth = manhattan.make_manhattan(
+            n, seed=42, device=dev, dtype=dtype)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan = schur.make_plan(graph, {"se2": n}, max_part_size=part)
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t0
+        name = str(dtype)[6:]
+        if dtype == torch.float32:
+            print(f"[7] {n} poses, {graph.num_factors} factors, made in "
+                  f"{t_gen:.1f} s; plan {plan.stats()} built on the host in "
+                  f"{t_plan:.2f} s (native symbolic library: "
+                  f"{native.get_lib() is not None})")
+        torch.cuda.reset_peak_memory_stats()
+        landmark_block_solve.launches = 0
+        dts = []
+        for _ in range(4):          # a warm-up run, then three timed runs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v, lam, err, err0 = _pose_graph_run(graph, initial, plan, lam0,
+                                                iters)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        launches = landmark_block_solve.launches
+        ate0, ate = (metrics.ate(x["se2"][:, :2].cpu().numpy(),
+                                 truth[:, :2])["rmse"] for x in (initial, v))
+        runs[name] = (float(err0), float(err), ate)
+        print(f"[7] {name}: error {float(err0):.6g} -> {float(err):.6g}, "
+              f"lambda {float(lam):g}, ATE rmse {ate0:.2f} m -> {ate:.4f} m")
+        print(f"[7] {name}: warm-up run of {iters} LM iterations "
+              f"{dts[0]:.3f} s, then three timed runs "
+              + ", ".join(f"{dt:.4f}" for dt in dts[1:]) + " s: "
+              + ", ".join(f"{iters / dt:.3f}" for dt in dts[1:])
+              + f" it/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
+              f"landmark_block_solve.launches = {launches} (this path holds "
+              f"no hand-written kernel: its JAX counterpart has no Pallas "
+              f"kernel)")
+        del graph, initial, plan, v
+    e0, e32, ate32 = runs["float32"]
+    _, e64, ate64 = runs["float64"]
+    if not np.isfinite(e32):
+        raise RuntimeError(f"gate: non-finite pose-graph error {e32}")
+    if not e32 < e0:
+        raise RuntimeError(f"gate: pose-graph error did not decrease: {e0} "
+                           f"-> {e32}")
+    if not abs(e32 - e64) <= 1e-3 * abs(e64):
+        raise RuntimeError(f"gate: float32 error {e32} is not within 1e-3 "
+                           f"relative of the float64 error {e64}")
+    if not ate32 < 0.5:
+        raise RuntimeError(f"gate: ATE rmse {ate32:.4f} m >= 0.5 m")
+    print(f"[7] gates passed: float32 vs float64 error rel "
+          f"{abs(e32 - e64) / abs(e64):.2e} (< 1e-3), ATE rmse "
+          f"{ate32:.4f} m (< 0.5; float64 {ate64:.4f} m)")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA card")
     dev = config.device("cuda")
-    print(card_line())
+    card = card_line()
+    print(card)
     print(f"[1] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
     phase_build()
-    max_abs_err, ms, plain_ms = phase_kernel(dev)
+    record = phase_kernel(dev)
     phase_parity(dev)
     launches = phase_main(dev)
+    phase_pose_parity(dev)
+    phase_se3_parity(dev)
+    phase_pose_main(dev)
+    print(card)
     print(json.dumps({"kernels": [{
         "name": "landmark_block_solve", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+        "launches": launches, **record}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

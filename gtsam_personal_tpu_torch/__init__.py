@@ -3,7 +3,9 @@
 The port runs the bundle-adjustment Levenberg-Marquardt main path
 (`sfm/ba_pack.py:ba_lm_run_pk`) on one NVIDIA H100, with the landmark 3x3
 block solve as a hand-written CUDA kernel (`ops/block_solve.py`,
-`csrc/landmark_block_solve.cu`). The JAX package `gtsam_personal_tpu` is the
+`csrc/landmark_block_solve.cu`), and the pose-graph batch LM path
+(`nonlinear/optimizers.py:lm_run` over `linear/schur.py:solve_partitioned`).
+The JAX package `gtsam_personal_tpu` is the
 reference it is tested against; this package imports torch and never jax.
 
 Importing the package loads nothing heavy: import the submodules you need.

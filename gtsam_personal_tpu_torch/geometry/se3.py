@@ -1,8 +1,11 @@
 """SE(3) on batches of rigid transforms stored as [..., 3, 4] = [R | t].
 
-JAX counterpart: gtsam_personal_tpu/geometry/se3.py:expmap, compose,
-transform_to, retract. Tangent xi = (omega, v), rotation first (reference:
-Pose3.h:147-150); `retract` is the right retraction p * Exp(xi).
+JAX counterpart: gtsam_personal_tpu/geometry/se3.py:identity, make, rotation,
+translation, expmap, logmap, compose, inverse, between, transform_to,
+retract, local. Tangent xi = (omega, v), rotation first (reference:
+Pose3.h:147-150); `retract` is the right retraction p * Exp(xi). The
+functions take any number of leading batch axes, and one element under
+`torch.func.vmap`.
 """
 
 import torch
@@ -10,8 +13,24 @@ import torch
 from gtsam_personal_tpu_torch.geometry import so3
 
 
-def _make(R, t):
+TANGENT_DIM = 6
+PARAM_SHAPE = (3, 4)
+
+
+def identity(*, device, dtype):
+    return torch.eye(3, 4, device=device, dtype=dtype)
+
+
+def make(R, t):
     return torch.cat([R, t[..., None]], dim=-1)
+
+
+def rotation(p):
+    return p[..., :3]
+
+
+def translation(p):
+    return p[..., 3]
 
 
 def _matvec(A, x):
@@ -22,13 +41,28 @@ def _matvec(A, x):
 def expmap(xi):
     """[..., 6] -> [..., 3, 4]: R = Exp(omega), t = J_l(omega) v."""
     w, v = xi[..., :3], xi[..., 3:]
-    return _make(so3.expmap(w), _matvec(so3.left_jacobian(w), v))
+    return make(so3.expmap(w), _matvec(so3.left_jacobian(w), v))
+
+
+def logmap(p):
+    w = so3.logmap(p[..., :3])
+    return torch.cat([w, _matvec(so3.left_jacobian_inverse(w), p[..., 3])],
+                     dim=-1)
 
 
 def compose(a, b):
     Ra, ta = a[..., :3], a[..., 3]
     Rb, tb = b[..., :3], b[..., 3]
-    return _make(Ra @ Rb, ta + _matvec(Ra, tb))
+    return make(Ra @ Rb, ta + _matvec(Ra, tb))
+
+
+def inverse(a):
+    Rt = a[..., :3].transpose(-1, -2)
+    return make(Rt, -_matvec(Rt, a[..., 3]))
+
+
+def between(a, b):
+    return compose(inverse(a), b)
 
 
 def transform_to(p, pt):
@@ -43,3 +77,7 @@ def transform_to(p, pt):
 def retract(p, xi):
     """Right retraction p * Exp(xi) (reference default chart)."""
     return compose(p, expmap(xi))
+
+
+def local(a, b):
+    return logmap(between(a, b))

@@ -1,1 +1,1 @@
-"""Linear-algebra pieces of the port (robust m-estimators)."""
+"""Noise models, linearization and the linear solvers of the port."""

@@ -1,0 +1,222 @@
+"""Nonlinear least-squares optimizers: Gauss-Newton and Levenberg-Marquardt.
+
+JAX counterpart: gtsam_personal_tpu/nonlinear/optimizers.py:Params,
+check_convergence, graph_error, optimize_gn, optimize_lm, lm_run, Result
+(lines 34-259). Semantics follow the reference's optimizers:
+- the convergence test is NonlinearOptimizer::checkConvergence
+  (nonlinear/NonlinearOptimizer.cpp:182);
+- the LM lambda schedule is LevenbergMarquardtOptimizer with
+  useFixedLambdaFactor (LevenbergMarquardtOptimizer.cpp:121-273): try a solve
+  at lambda; accept (lambda /= factor) if the error decreased, else reject
+  (lambda *= factor);
+- optional diagonal damping lambda * diag(H) as in `buildDampedSystem`.
+
+Solvers "dense", "pcg" and "schur" work. The feature-major layout
+(`fm=True`), the solvers "qr" and "sequential", a multi-level Schur plan and
+the single-program `optimize_lm_jit` are not in the port yet; asking for one
+raises NotImplementedError with the ROADMAP item that will bring it.
+"""
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from gtsam_personal_tpu_torch.core.graph import FactorGraph
+from gtsam_personal_tpu_torch.core.values import Layout, Values, tree_norm
+from gtsam_personal_tpu_torch.linear import solvers
+from gtsam_personal_tpu_torch.linear.linearize import linearize
+from gtsam_personal_tpu_torch.linear.schur import SchurPlan, solve_partitioned
+
+
+@dataclass(frozen=True)
+class Params:
+    """Reference analogue: NonlinearOptimizerParams +
+    LevenbergMarquardtParams."""
+    max_iterations: int = 100
+    relative_error_tol: float = 1e-5
+    absolute_error_tol: float = 1e-5
+    error_tol: float = 0.0
+    solver: str = "dense"          # 'dense' | 'pcg' | 'schur'
+    pcg_maxiter: int = 250
+    pcg_tol: float = 1e-8
+    fm: bool = False               # feature-major layout: not ported
+    # LM:
+    lambda_initial: float = 1e-5
+    lambda_factor: float = 10.0
+    lambda_upper_bound: float = 1e5
+    lambda_lower_bound: float = 0.0
+    diagonal_damping: bool = False
+    max_inner_tries: int = 10
+    verbose: bool = False
+    # reference: NonlinearOptimizerParams::iterationHook(iter, errBefore,
+    # errAfter), called after every accepted iteration
+    # (NonlinearOptimizer.cpp:99)
+    iteration_hook: Optional[Callable] = None
+
+
+def check_convergence(params: Params, old_err, new_err):
+    """Reference: checkConvergence (NonlinearOptimizer.cpp:182)."""
+    if new_err <= params.error_tol:
+        return True
+    abs_dec = old_err - new_err
+    rel_dec = abs_dec / old_err if old_err > 0 else 1.0
+    return (abs_dec <= params.absolute_error_tol
+            or rel_dec <= params.relative_error_tol)
+
+
+def _check_supported(params: Params, plan):
+    if params.fm:
+        raise NotImplementedError(
+            "Params(fm=True): the feature-major layout of linear/fm.py is "
+            "not ported (ROADMAP queue 1 item 9, with ISAM2)")
+    if params.solver in ("qr", "sequential"):
+        raise NotImplementedError(
+            f"solver {params.solver!r}: linear/conditional.py is not ported "
+            "(ROADMAP queue 1 item 10.5)")
+    if params.solver not in ("dense", "pcg", "schur"):
+        raise ValueError(f"unknown solver {params.solver!r}")
+    if params.solver == "schur" and not isinstance(plan, SchurPlan):
+        if plan is None:
+            raise ValueError("solver 'schur' needs plan=schur.make_plan(...)")
+        raise NotImplementedError(
+            f"a plan of type {type(plan).__name__}: only linear/schur.py's "
+            "SchurPlan is ported; the multi-level plan of linear/mlschur.py "
+            "is ROADMAP queue 1 item 10.5")
+
+
+def _solve(lin, layout, lam, diag_damping, params: Params, plan):
+    if params.solver == "pcg":
+        return solvers.solve_pcg(lin, lam, diag_damping,
+                                 maxiter=params.pcg_maxiter,
+                                 tol=params.pcg_tol)
+    if params.solver == "schur":
+        return solve_partitioned(lin, plan, lam)
+    return solvers.solve_dense(
+        lin, layout, lam,
+        layout.flatten(diag_damping) if diag_damping is not None else None)
+
+
+def _linearize(graph, values, params: Params):
+    lin = linearize(graph, values)
+    return lin, lin.hessian_diagonal() if params.diagonal_damping else None
+
+
+def _lm_try_step(graph: FactorGraph, values: Values, lam, params: Params,
+                 plan=None):
+    """One linearize + damped solve + retract + error evaluation."""
+    lin, dd = _linearize(graph, values, params)
+    delta = _solve(lin, Layout.of(values), lam, dd, params, plan)
+    new_values = values.retract(delta)
+    return new_values, graph.error(new_values), tree_norm(delta)
+
+
+def graph_error(graph: FactorGraph, values: Values):
+    return graph.error(values)
+
+
+@dataclass
+class Result:
+    values: Values
+    error: float
+    iterations: int
+    converged: bool
+    lambda_final: float = 0.0
+
+
+def optimize_gn(graph: FactorGraph, values: Values, params: Params = Params(),
+                plan=None) -> Result:
+    """Gauss-Newton: linearize -> solve -> retract until converged
+    (reference: GaussNewtonOptimizer)."""
+    _check_supported(params, plan)
+    err = float(graph_error(graph, values))
+    for it in range(params.max_iterations):
+        new_values, new_err, _ = _lm_try_step(graph, values, 0.0, params,
+                                              plan)
+        new_err = float(new_err)
+        if params.verbose:
+            print(f"GN iter {it}: error {err:.6g} -> {new_err:.6g}")
+        if not math.isfinite(new_err):
+            return Result(values, err, it, False)
+        converged = check_convergence(params, err, new_err)
+        if new_err <= err:
+            values, err = new_values, new_err
+        if converged:
+            return Result(values, err, it + 1, True)
+        if new_err > err:  # diverging and not converged
+            return Result(values, err, it, False)
+    return Result(values, err, params.max_iterations, False)
+
+
+def optimize_lm(graph: FactorGraph, values: Values, params: Params = Params(),
+                plan=None) -> Result:
+    """Levenberg-Marquardt with the reference's fixed-factor lambda
+    schedule, driven from the host (one error read per try)."""
+    _check_supported(params, plan)
+    err = float(graph_error(graph, values))
+    lam = params.lambda_initial
+    for it in range(params.max_iterations):
+        accepted = False
+        for _ in range(params.max_inner_tries):
+            new_values, new_err, _ = _lm_try_step(graph, values, lam, params,
+                                                  plan)
+            new_err = float(new_err)
+            if math.isfinite(new_err) and new_err < err:
+                accepted = True
+                break
+            lam = lam * params.lambda_factor
+            if lam > params.lambda_upper_bound:
+                return Result(values, err, it, False, lam)
+        if not accepted:
+            return Result(values, err, it, False, lam)
+        if params.verbose:
+            print(f"LM iter {it}: error {err:.6g} -> {new_err:.6g} "
+                  f"(lambda {lam:.2g})")
+        values, old_err, err = new_values, err, new_err
+        if params.iteration_hook is not None:
+            params.iteration_hook(it, old_err, err)
+        lam = max(lam / params.lambda_factor, params.lambda_lower_bound,
+                  1e-10)
+        if check_convergence(params, old_err, err):
+            return Result(values, err, it + 1, True, lam)
+    return Result(values, err, params.max_iterations, False, lam)
+
+
+def lm_run(graph: FactorGraph, values: Values, lam, err, n_iters: int,
+           params: Params = Params(), plan=None):
+    """`n_iters` full LM iterations; returns (values, lam, err) with lam and
+    err as 0-dim tensors on the device. Every iteration is an accept/reject
+    tryLambda step with the fixed-factor lambda adaptation
+    (LevenbergMarquardtOptimizer.cpp:121), and a REJECTED try reuses the
+    cached linearization: the state did not move, so linearizing again
+    would compute the same numbers.
+
+    The JAX package runs this as one `lax.scan` over `lax.cond`. Here the
+    values, lambda and the error stay on the device, and the loop reads ONE
+    flag per iteration from it, the accept decision, to skip the
+    linearization after a reject. Linearizing always and reading nothing
+    would give the same result; the flag is read because the eager
+    linearization is the most expensive phase on the host."""
+    _check_supported(params, plan)
+    layout = Layout.of(values)
+    first = next(iter(values.blocks.values()))
+    lam = torch.as_tensor(lam, dtype=first.dtype, device=first.device)
+    err = torch.as_tensor(err, dtype=first.dtype, device=first.device)
+    lam_min = max(params.lambda_lower_bound, 1e-10)
+
+    need = True
+    for _ in range(n_iters):
+        if need:
+            lin, dd = _linearize(graph, values, params)
+        delta = _solve(lin, layout, lam, dd, params, plan)
+        new_values = values.retract(delta)
+        new_err = graph.error(new_values)
+        need = bool(torch.isfinite(new_err) & (new_err < err))
+        if need:
+            values, err = new_values, new_err
+            lam = torch.clamp(lam / params.lambda_factor, min=lam_min)
+        else:
+            lam = torch.clamp(lam * params.lambda_factor,
+                              max=params.lambda_upper_bound)
+    return values, lam, err
