@@ -34,11 +34,38 @@ Phases, in order; any failure raises and the script exits non-zero:
      and in float64, one warm-up run and three timed runs each; gates: the error is finite and
      decreases, the same run in float64 ends within 1e-3 relative of the
      float32 error, and the aligned ATE rmse against the truth is below
-     0.5 m.
+     0.5 m;
+  8. the chain preconditioner's numerics on the card: the chain_factorize
+     kernel against its plain version (a Python loop) on blocks harvested
+     from linearized graphs, d = 3 (a 256-pose Manhattan world) and d = 6
+     (a 256-pose SE(3) chain) at capacity 256, d = 4 and 15 on seeded SPD
+     chains at capacity 64, in float64 (1e-10 of the largest entry) and
+     float32 (1e-3), and d = 3 at full length (capacity 16384, the 10000
+     poses of phase 7's graph); then factorize + chain_apply in float32
+     against float64 at that length (relative error of the applied gradient
+     below 1e-3: what a TF32 product in the chain would break); device time
+     of the kernel at capacity 16384, d = 3 and 6 (CUDA events around 20
+     launches, and a `torch.profiler` pass beside them), and of chain_apply
+     with its device events per call (`torch.profiler`);
+  9. ISAM2 at a small size in float64: a 200-pose Manhattan stream, one
+     update per measurement, `chain:se2`, CG run to convergence, on the card
+     and on the CPU: the same rows relinearized in every update, CG
+     iteration counts within 2, estimates to 1e-8, error to 1e-9 relative;
+     then the 20 oldest poses marginalized out and two more updates, same
+     comparison;
+ 10. the ISAM2 stream at full size in float32: the 10000 poses and 18089
+     factors of phase 7's graph through the engine with the defaults of
+     examples/isam2_city10000.py (40 CG iterations, tolerance 1e-3,
+     relinearization threshold 0.01, `chain:se2`, capacities set for the
+     whole stream), an update every 10 measurements up to pose
+     ISAM_SWITCH_POSE and after every measurement from there to the end,
+     then six polishing updates; gates: the error is finite and at most 1.05
+     times the float64 batch optimum of phase 7, the aligned ATE rmse is
+     below 0.5 m, and the chain_factorize kernel was launched.
 
-The last two lines are a JSON record of the kernels
-({"kernels": [...]}, with the launch count from the timed run of phase 5)
-and {"ok": true, "device": {...}}.
+The last two lines are a JSON record of the kernels ({"kernels": [...]},
+each with the launch count from its main path: the timed run of phase 5,
+the stream of phase 10) and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -55,12 +82,16 @@ from gtsam_personal_tpu_torch.core.values import Layout, values_from_numpy
 from gtsam_personal_tpu_torch.geometry import se3
 from gtsam_personal_tpu_torch.linear import schur, solvers
 from gtsam_personal_tpu_torch.linear.linearize import linearize
-from gtsam_personal_tpu_torch.nonlinear import optimizers
-from gtsam_personal_tpu_torch.ops import _build
+from gtsam_personal_tpu_torch.nonlinear import isam2, optimizers
+from gtsam_personal_tpu_torch.ops import _build, chain
 from gtsam_personal_tpu_torch.ops.block_solve import (
     landmark_block_solve, landmark_block_solve_ref)
+from gtsam_personal_tpu_torch.ops.chain import chain_factorize
 from gtsam_personal_tpu_torch.sfm import ba, ba_pack, synthetic
 from gtsam_personal_tpu_torch.slam import factors as F, manhattan, metrics
+from gtsam_personal_tpu_torch.tools import profile_isam2
+from gtsam_personal_tpu_torch.tools.profile_isam2 import (
+    ISAM_N, ISAM_PARAMS, ISAM_UPDATE_EVERY)
 from gtsam_personal_tpu_torch.tools.profile_pose_graph import (
     POSE_ITERS, POSE_LAM0, POSE_N, POSE_PART, device_ms_per_call)
 
@@ -75,6 +106,18 @@ FP32_FLOP_PER_S = 67e12
 # arithmetic of one block solve: 3x3 cofactors, determinant, reciprocal,
 # scaled inverse (6 unique entries) and the product with t
 BLOCK_SOLVE_FLOPS = 56
+CHAIN_SOURCE = "gtsam_personal_tpu_torch/csrc/chain_factorize.cu"
+CHAIN_REPLACES = "gtsam_personal_tpu/nonlinear/isam2.py:904"
+CHAIN_CAP = 16384           # the capacity of the 10000-pose stream
+CHAIN_LAM = 1e-6            # ISAM2Params.lam
+# kernel against plain version, relative to the largest entry: the kernel
+# inverts by Gauss-Jordan without pivoting and with fused multiply-adds,
+# torch.linalg.inv by pivoted LU, and the difference compounds along the chain
+CHAIN_RTOL = {torch.float64: 1e-10, torch.float32: 1e-3}
+# phase 10 updates after every measurement from this pose on (the last 970
+# or so of the 18088 measurements), and every ISAM_UPDATE_EVERY measurements
+# before it: at about 0.1 s an update, more would not fit the script's time
+ISAM_SWITCH_POSE = 9500
 
 
 def card_line() -> str:
@@ -171,10 +214,13 @@ def phase_kernel(dev):
               for k in ("plain", "library", "kernel")}
     (ms, n_k), (plain_ms, n_p), (library_ms, n_l) = (
         device[k] for k in ("kernel", "plain", "library"))
-    if n_k < 1 or not ms > 0:
+    # one kernel per call; a profiler pass can lose a few of the 200 events,
+    # so the kernel's time is taken per recorded event
+    if not (0.9 <= n_k <= 1.0 and ms > 0):
         raise RuntimeError(f"the profiler saw {n_k} device events and "
                            f"{ms} ms per call of the kernel; expected one "
                            f"event of positive time")
+    ms = ms / n_k
     bound_ms, bound_by = block_solve_bound(P_FULL, 4)
     print(f"[3] float32 P={P_FULL}, device time per call (torch.profiler, "
           f"200 calls): kernel {ms * 1e3:.2f} us in {n_k:g} kernel, plain "
@@ -363,7 +409,8 @@ def phase_se3_parity(dev):
 
 
 def phase_pose_main(dev):
-    """Batch LM on the 10000-pose graph under its gates."""
+    """Batch LM on the 10000-pose graph under its gates; returns the final
+    float64 error, the batch optimum that phase 10 is held to."""
     n, part, lam0, iters = POSE_N, POSE_PART, POSE_LAM0, POSE_ITERS
     runs = {}
     for dtype in (torch.float32, torch.float64):
@@ -422,6 +469,266 @@ def phase_pose_main(dev):
     print(f"[7] gates passed: float32 vs float64 error rel "
           f"{abs(e32 - e64) / abs(e64):.2e} (< 1e-3), ATE rmse "
           f"{ate32:.4f} m (< 0.5; float64 {ate64:.4f} m)")
+    return e64
+
+
+def _harvest(graph, values, group):
+    """(D, O) [n, d, d] of the chain preconditioner of `group`, as the
+    ISAM2 engine harvests them from a linearized graph."""
+    lin = linearize(graph, values)
+    return (lin.hessian_block_diagonal()[group],
+            isam2._chain_offdiag(lin, group))
+
+
+def _spd_chain(d, cap, dev, seed):
+    """A seeded block-tridiagonal SPD system (D, O) [cap, d, d] in
+    float64."""
+    rng = np.random.default_rng(seed)
+    A, B = rng.normal(size=(2, cap, d, d))
+    D = 0.5 * np.eye(d) + np.einsum("kij,kil->kjl", A, A)
+    D[1:] += np.einsum("kij,kil->kjl", B[:-1], B[:-1])
+    O = np.einsum("kij,kil->kjl", A, B)
+    return torch.tensor(D, device=dev), torch.tensor(O, device=dev)
+
+
+def _pad(a, cap):
+    return torch.cat([a, a.new_zeros((cap - a.shape[0],) + a.shape[1:])])
+
+
+def chain_bound(cap, d, itemsize):
+    """(bound_ms, bound_by) of one chain factorization: the larger of its
+    bytes (D and O read, Uinv written, each once) over the HBM rate and its
+    operations (per block two d^3 products and a d^3 inverse, 2 flop each)
+    over the float32 rate. Neither is what limits the kernel: see the
+    dependent-chain figure that phase 8 prints."""
+    by_bytes = 3 * cap * d * d * itemsize / HBM_BYTES_PER_S * 1e3
+    by_ops = 6 * d ** 3 * cap / FP32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
+
+
+def phase_chain(dev):
+    """The chain numerics on the card; returns the chain_factorize kernel's
+    record at capacity 16384, d = 3, float32."""
+    def check(name, D, O, nvar, dtype):
+        Dm, Om = chain.chain_prepare(D.to(dtype), O.to(dtype), nvar,
+                                     CHAIN_LAM)
+        U = chain_factorize(Dm, Om)
+        U_ref = chain.chain_factorize_ref(Dm, Om)
+        torch.cuda.synchronize()
+        scale = U_ref.abs().max().item()
+        err = (U - U_ref).abs().max().item()
+        print(f"[8] {name} {str(dtype)[6:]}: max |kernel - plain| = "
+              f"{err:.3e}, largest entry {scale:.3e} (rtol "
+              f"{CHAIN_RTOL[dtype]:g} of it)")
+        if not err <= CHAIN_RTOL[dtype] * scale:
+            raise RuntimeError(f"chain_factorize kernel disagrees with its "
+                               f"plain version: {name} {dtype} {err}")
+        return err
+
+    g2, v2, _ = manhattan.make_manhattan(256, seed=7, device=dev,
+                                         dtype=torch.float64)
+    D3, O3 = _harvest(g2, v2, "se2")
+    D6, O6 = _harvest(*_se3_chain(256, dev, torch.float64), "se3")
+    gN, vN, _ = manhattan.make_manhattan(POSE_N, seed=42, device=dev,
+                                         dtype=torch.float64)
+    linN = linearize(gN, vN)
+    DN = _pad(linN.hessian_block_diagonal()["se2"], CHAIN_CAP)
+    ON = _pad(isam2._chain_offdiag(linN, "se2"), CHAIN_CAP)
+    rN = _pad(linN.gradient_at_zero()["se2"], CHAIN_CAP)
+    for dtype in (torch.float64, torch.float32):
+        check("d=3, 256 Manhattan poses, cap 256", D3, O3, 256, dtype)
+        check("d=6, 256 SE(3) poses, cap 256", D6, O6, 256, dtype)
+        check("d=4, seeded SPD chain, cap 64, 37 active",
+              *_spd_chain(4, 64, dev, 4), 37, dtype)
+        check("d=15, seeded SPD chain, cap 64, 37 active",
+              *_spd_chain(15, 64, dev, 15), 37, dtype)
+    check(f"d=3, {POSE_N} Manhattan poses, cap {CHAIN_CAP}", DN, ON, POSE_N,
+          torch.float64)
+    err32 = check(f"d=3, {POSE_N} Manhattan poses, cap {CHAIN_CAP}", DN, ON,
+                  POSE_N, torch.float32)
+
+    # float32 against float64 at full length, factorize + apply
+    x = {}
+    for dtype in (torch.float32, torch.float64):
+        Dm, Om = chain.chain_prepare(DN.to(dtype), ON.to(dtype), POSE_N,
+                                     CHAIN_LAM)
+        U = chain_factorize(Dm, Om)
+        x[dtype] = chain.chain_apply(U, *chain.chain_scan_templates(U, Om),
+                                     rN.to(dtype)).double()
+    rel = ((x[torch.float32] - x[torch.float64]).norm()
+           / x[torch.float64].norm()).item()
+    print(f"[8] cap {CHAIN_CAP}, {POSE_N} active blocks: factorize + "
+          f"chain_apply in float32 against float64, relative error of the "
+          f"applied gradient {rel:.3e} (< 1e-3)")
+    if not rel < 1e-3:
+        raise RuntimeError(f"gate: float32 chain is {rel} from float64")
+
+    # times at capacity 16384
+    rec = {}
+    for d, D, O, nvar in ((3, DN, ON, POSE_N),
+                          (6, D6.repeat(64, 1, 1), O6.repeat(64, 1, 1),
+                           CHAIN_CAP)):
+        Dm, Om = chain.chain_prepare(D.float(), O.float(), nvar, CHAIN_LAM)
+        # a kernel of milliseconds: CUDA events around 20 launches time it
+        # well; the profiler's figure per kernel event stands beside it (a
+        # profiler pass can lose events, so it is not divided by the calls)
+        ms = _time_ms(lambda: chain_factorize(Dm, Om), 20)
+        p_ms, p_n = device_ms_per_call(lambda: chain_factorize(Dm, Om), 20)
+        if not (ms > 0 and p_n > 0):
+            raise RuntimeError(f"chain_factorize d={d}: {ms} ms per call by "
+                               f"events, {p_n} profiler events per call")
+        bound_ms, bound_by = chain_bound(CHAIN_CAP, d, 4)
+        print(f"[8] chain_factorize float32 cap {CHAIN_CAP} d={d}: "
+              f"{ms:.4f} ms per call (CUDA events, 20 calls; torch.profiler "
+              f"{p_ms / p_n:.4f} ms per kernel event, {20 * p_n:g} of 20 "
+              f"recorded), {ms / CHAIN_CAP * 1e6:.1f} ns per block: the "
+              f"dependent chain is what limits it; bound "
+              f"{bound_ms * 1e3:.3f} us by {bound_by} (3 x {CHAIN_CAP} x "
+              f"{d * d} x 4 B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        if d == 3:
+            U = chain_factorize(Dm, Om)
+            Tf, Tb = chain.chain_scan_templates(U, Om)
+            r = rN.float()
+            a_ms, a_n = device_ms_per_call(
+                lambda: chain.chain_apply(U, Tf, Tb, r), 20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chain.chain_factorize_ref(Dm, Om)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            Ds, Os = chain.chain_prepare(D3.float(), O3.float(), 256,
+                                         CHAIN_LAM)
+            chain.chain_factorize_ref(Ds, Os)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chain.chain_factorize_ref(Ds, Os)
+            torch.cuda.synchronize()
+            plain256 = (time.perf_counter() - t0) * 1e3
+            print(f"[8] chain_apply float32 cap {CHAIN_CAP} d=3: device "
+                  f"time {a_ms:.4f} ms per call in {a_n:g} device events; "
+                  f"plain chain_factorize (a Python loop, host clock, one "
+                  f"call): {plain_ms:.1f} ms at cap {CHAIN_CAP}, "
+                  f"{plain256:.2f} ms at cap 256")
+            rec = {"max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+    return rec
+
+
+def _isam_small(dev, data):
+    """The small float64 stream of phase 9 through an engine on `dev`:
+    update records, then 20 poses marginalized and two more updates."""
+    isam = profile_isam2.make_engine(data, device=dev, dtype=torch.float64,
+                                     cg_maxiter=300, cg_tol=1e-10)
+    recs = profile_isam2.run_stream(isam, data)
+    out = [([r[2] for r in recs], [r[3] for r in recs],
+            isam.estimate_array("se2"), isam.error())]
+    isam.marginalize_variables({"se2": list(range(20))})
+    res = [isam.update() for _ in range(2)]
+    out.append(([r.relinearized_rows for r in res],
+                [r.cg_iterations for r in res],
+                isam.estimate_array("se2")[20:], isam.error()))
+    return out
+
+
+def phase_isam_parity(dev):
+    """The float64 ISAM2 stream on the card against the CPU."""
+    n = 200
+    graph, _, _ = manhattan.make_manhattan(n, seed=5, device="cpu",
+                                           dtype=torch.float64)
+    data = profile_isam2.stream_data(graph)
+    launches0 = chain_factorize.launches
+    card = _isam_small(dev, data)
+    launches = chain_factorize.launches - launches0
+    cpu = _isam_small(torch.device("cpu"), data)
+    for what, a, b in zip(("stream", "after eviction"), card, cpu):
+        if a[0] != b[0]:
+            raise RuntimeError(f"[9] {what}: relinearized rows differ: "
+                               f"{a[0]} on the card, {b[0]} on the CPU")
+        # CG's residual norm is not monotone and the card sums in another
+        # order: after tens of iterations the stop test can fire an
+        # iteration or two apart
+        gap = max(abs(x - y) for x, y in zip(a[1], b[1]))
+        if gap > 2:
+            raise RuntimeError(f"[9] {what}: CG iterations differ by {gap}: "
+                               f"{a[1]} on the card, {b[1]} on the CPU")
+        np.testing.assert_allclose(a[2], b[2], rtol=0, atol=1e-8)
+        np.testing.assert_allclose(a[3], b[3], rtol=1e-9)
+        print(f"[9] {what}: {len(a[0])} updates, card == CPU: relinearized "
+              f"rows equal (max {max(a[0])}), CG iterations within {gap} "
+              f"(max {max(a[1])}), estimates max |diff| "
+              f"{np.abs(a[2] - b[2]).max():.2e} (atol 1e-8), error "
+              f"{a[3]:.10g} (rel 1e-9)")
+    print(f"[9] {n}-pose float64 stream, {len(data['ij'])} measurements, "
+          f"chain:se2, CG to 1e-10; 20 poses marginalized; "
+          f"chain_factorize.launches on the card = {launches}")
+
+
+def phase_isam_main(dev, batch_optimum):
+    """The full stream in float32 under its gates; returns the
+    chain_factorize launches of the stream."""
+    t0 = time.perf_counter()
+    graph, _, truth = manhattan.make_manhattan(ISAM_N, seed=42, device=dev,
+                                               dtype=torch.float32)
+    data = profile_isam2.stream_data(graph)
+    n_meas = len(data["ij"])
+    tail_from = int(np.argmax(data["ij"].max(axis=1) >= ISAM_SWITCH_POSE))
+    print(f"[10] {ISAM_N} poses, {n_meas} measurements, made in "
+          f"{time.perf_counter() - t0:.1f} s; float32, {ISAM_PARAMS}; an "
+          f"update every {ISAM_UPDATE_EVERY} measurements up to pose "
+          f"{ISAM_SWITCH_POSE}, then after each of the last "
+          f"{n_meas - tail_from}")
+    torch.cuda.reset_peak_memory_stats()
+    chain_factorize.launches = 0
+    landmark_block_solve.launches = 0
+    t0 = time.perf_counter()
+    isam = profile_isam2.make_engine(data, device=dev, dtype=torch.float32)
+    recs = profile_isam2.run_stream(isam, data,
+                                    update_every=ISAM_UPDATE_EVERY,
+                                    switch_pose=ISAM_SWITCH_POSE)
+    res = profile_isam2.polish(isam)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = chain_factorize.launches
+    for lo in range(0, ISAM_N, 1000):
+        seg = [r for r in recs if lo < r[0] <= lo + 1000
+               and r[0] < ISAM_SWITCH_POSE]
+        if seg:
+            k, ms, rmed, rmax, cmed, cmax = profile_isam2.summarize(seg)
+            print(f"[10]   poses {lo + 1:5d}-{seg[-1][0]:5d}: {ms:8.2f} ms "
+                  f"per update ({k} updates, one per {ISAM_UPDATE_EVERY} "
+                  f"measurements); relinearized rows median {rmed:g} max "
+                  f"{rmax}; CG iterations median {cmed:g} max {cmax}")
+    tail = [r for r in recs if r[0] >= ISAM_SWITCH_POSE]
+    k, ms, rmed, rmax, cmed, cmax = profile_isam2.summarize(tail)
+    print(f"[10] per-measurement tail, poses {ISAM_SWITCH_POSE}-{ISAM_N}: "
+          f"{ms:.3f} ms per update over {k} updates (median "
+          f"{1e3 * float(np.median([r[1] for r in tail])):.3f}, max "
+          f"{1e3 * max(r[1] for r in tail):.1f}); relinearized rows median "
+          f"{rmed:g} max {rmax}; CG iterations median {cmed:g} max {cmax}")
+    err = isam.error()
+    est = isam.estimate_array("se2")
+    ate = metrics.ate(est[:, :2], truth[:, :2])["rmse"]
+    print(f"[10] {len(recs)} updates and {len(res)} polishing updates in "
+          f"{wall:.1f} s; final error {err:.6g} (float64 batch optimum "
+          f"{batch_optimum:.6g}, ratio {err / batch_optimum:.5f}); ATE rmse "
+          f"{ate:.4f} m; chain_factorize.launches = {launches}; state "
+          f"capacity {isam._cap_n['se2']} poses; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
+          f"landmark_block_solve.launches = {landmark_block_solve.launches}")
+    if est.shape != (ISAM_N, 3):
+        raise RuntimeError(f"gate: estimate has shape {est.shape}")
+    if not np.isfinite(err):
+        raise RuntimeError(f"gate: non-finite ISAM2 error {err}")
+    if not err <= 1.05 * batch_optimum:
+        raise RuntimeError(f"gate: ISAM2 error {err} above 1.05 x the batch "
+                           f"optimum {batch_optimum}")
+    if not ate < 0.5:
+        raise RuntimeError(f"gate: ATE rmse {ate:.4f} m >= 0.5 m")
+    if launches <= 0:
+        raise RuntimeError("the stream launched no chain_factorize kernel")
+    return launches
 
 
 def main():
@@ -439,12 +746,18 @@ def main():
     launches = phase_main(dev)
     phase_pose_parity(dev)
     phase_se3_parity(dev)
-    phase_pose_main(dev)
+    batch_optimum = phase_pose_main(dev)
+    chain_record = phase_chain(dev)
+    phase_isam_parity(dev)
+    chain_launches = phase_isam_main(dev, batch_optimum)
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "landmark_block_solve", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, **record}]}))
+    print(json.dumps({"kernels": [
+        {"name": "landmark_block_solve", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+         "launches": launches, **record},
+        {"name": "chain_factorize", "route": "cuda",
+         "source": CHAIN_SOURCE, "replaces": CHAIN_REPLACES,
+         "launches": chain_launches, **chain_record}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

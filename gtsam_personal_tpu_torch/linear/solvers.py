@@ -77,34 +77,29 @@ def make_damped_matvec(lin: GaussianGraph, lam, diag_damping):
     return matvec
 
 
-def pcg(matvec, b: Dict[str, torch.Tensor], precond=None, maxiter=250,
-        tol=1e-8, x0=None):
-    """Preconditioned CG for A x = b over tangent dicts, with an iteration
-    cap and a relative-residual tolerance; `x0` warm-starts it (reference:
-    the CG loop of linear/iterative-inl.h).
+def pcg_loop(matvec, precond, x, r, threshold, maxiter):
+    """The CG iterations from the iterate x with residual r = b - A x, until
+    r.r <= threshold (a 0-dim tensor) or `maxiter`; returns (x, iterations
+    used as a 0-dim int64 tensor).
 
     The JAX package stops in a `while_loop` at the first iteration whose
     residual is under the tolerance. Here every update is masked by that
-    same test on the device, so an iteration past the stop changes nothing,
-    and the host reads the stop flag only every `PCG_CHECK_EVERY` iterations
-    to leave the loop: the result is that of an exact stop, at one host read
-    per `PCG_CHECK_EVERY` iterations instead of one per iteration."""
-    if precond is None:
-        precond = lambda r: r
-    if x0 is None:
-        x, r = tree_zeros_like(b), b            # b - A*0
-    else:
-        x, r = x0, tree_sub(b, matvec(x0))
+    same test on the device, so an iteration past the stop changes nothing
+    and is not counted, and the host reads the stop flag only every
+    `PCG_CHECK_EVERY` iterations to leave the loop: the result and the count
+    are those of an exact stop, at one host read per `PCG_CHECK_EVERY`
+    iterations instead of one per iteration."""
     z = precond(r)
     p = z
     rz = tree_vdot(r, z)
-    threshold = (tol * torch.sqrt(tree_vdot(b, b))) ** 2
     zero, one = torch.zeros_like(rz), torch.ones_like(rz)
+    used = torch.zeros((), dtype=torch.int64, device=rz.device)
 
     for k in range(maxiter):
         active = tree_vdot(r, r) > threshold
         if k % PCG_CHECK_EVERY == 0 and not bool(active):
             break
+        used = used + active
         Ap = matvec(p)
         pAp = tree_vdot(p, Ap)
         step = active & (pAp > 0)
@@ -116,7 +111,23 @@ def pcg(matvec, b: Dict[str, torch.Tensor], precond=None, maxiter=250,
         beta = rz_new / torch.where(rz != 0, rz, one)
         p = {g: torch.where(active, z[g] + beta * p[g], p[g]) for g in p}
         rz = torch.where(active, rz_new, rz)
-    return x
+    return x, used
+
+
+def pcg(matvec, b: Dict[str, torch.Tensor], precond=None, maxiter=250,
+        tol=1e-8, x0=None):
+    """Preconditioned CG for A x = b over tangent dicts, with an iteration
+    cap and a tolerance on the residual relative to |b|; `x0` warm-starts it
+    (reference: the CG loop of linear/iterative-inl.h). See `pcg_loop` for
+    how it stops."""
+    if precond is None:
+        precond = lambda r: r
+    if x0 is None:
+        x, r = tree_zeros_like(b), b            # b - A*0
+    else:
+        x, r = x0, tree_sub(b, matvec(x0))
+    threshold = (tol * torch.sqrt(tree_vdot(b, b))) ** 2
+    return pcg_loop(matvec, precond, x, r, threshold, maxiter)[0]
 
 
 def solve_pcg(lin: GaussianGraph, lam=0.0, diag_damping=None,

@@ -1,9 +1,12 @@
-"""SLAM measurement factors: priors and between factors.
+"""SLAM measurement factors: priors, between factors, bearing/range and
+landmark observations.
 
 JAX counterpart: gtsam_personal_tpu/slam/factors.py:make_prior_residual,
-make_between_residual, add_prior, add_between, diag_noise, full_info_noise
-(lines 22-52 and 83-109; reference: gtsam/slam/BetweenFactor.h,
-nonlinear/PriorFactor.h). Each factor type is a pure residual function over
+make_between_residual, bearing_range_2d_residual, range_2d_residual,
+pose_point_2d_residual, pose_point_3d_residual, add_prior, add_between,
+diag_noise, full_info_noise (lines 22-109; reference:
+gtsam/slam/BetweenFactor.h, nonlinear/PriorFactor.h,
+sam/BearingRangeFactor.h). Each factor type is a pure residual function over
 ONE factor's manifold points; the Jacobians come from forward-mode
 differentiation through the retraction (linear/linearize.py).
 
@@ -13,6 +16,7 @@ Residual conventions match the reference, so costs are comparable:
 """
 
 import numpy as np
+import torch
 
 from gtsam_personal_tpu_torch.core import manifolds
 from gtsam_personal_tpu_torch.geometry import se2, se3, so2, so3
@@ -44,17 +48,51 @@ def make_between_residual(group: str):
     return residual
 
 
+def bearing_range_2d_residual(xs, meas):
+    """Pose2 -> Point2 bearing and range (reference: BearingRangeFactor with
+    A1 = Pose2, A2 = Point2): [wrapped bearing error, range error]."""
+    pose, point = xs
+    db = so2.wrap(se2.bearing(pose, point) - meas["bearing"])
+    return torch.stack([db, se2.range_to(pose, point) - meas["range"]])
+
+
+def range_2d_residual(xs, meas):
+    pose, point = xs
+    return (se2.range_to(pose, point) - meas["range"]).reshape(1)
+
+
+def pose_point_2d_residual(xs, meas):
+    """Observation of a landmark in the pose frame (simulated2D style)."""
+    pose, point = xs
+    return se2.transform_to(pose, point) - meas["measured"]
+
+
+def pose_point_3d_residual(xs, meas):
+    pose, point = xs
+    return se3.transform_to(pose, point) - meas["measured"]
+
+
+_NAMED = {"bearing_range_2d": bearing_range_2d_residual,
+          "range_2d": range_2d_residual,
+          "pose_point_2d": pose_point_2d_residual,
+          "pose_point_3d": pose_point_3d_residual}
+
+
 def residual_by_name(name: str):
-    """The residual function of a batch named `prior_<group>` or
-    `between_<group>` (an `_anti` suffix, which `FactorBatch.negated` adds,
-    is ignored)."""
+    """The residual function of a batch named `prior_<group>`,
+    `between_<group>`, or one of `bearing_range_2d`, `range_2d`,
+    `pose_point_2d`, `pose_point_3d` (an `_anti` suffix, which
+    `FactorBatch.negated` adds, is ignored)."""
     while name.endswith("_anti"):
         name = name[:-len("_anti")]
+    if name in _NAMED:
+        return _NAMED[name]
     kind, _, group = name.partition("_")
     makers = {"prior": make_prior_residual, "between": make_between_residual}
     if kind not in makers or not group:
         raise ValueError(f"no residual function is known for a batch named "
-                         f"{name!r} (known: prior_<group>, between_<group>)")
+                         f"{name!r} (known: prior_<group>, between_<group>, "
+                         f"{', '.join(sorted(_NAMED))})")
     return makers[kind](group)
 
 

@@ -115,8 +115,9 @@ def test_build_raises_with_nvcc_messages(tmp_path, monkeypatch):
 
 
 def test_build_is_keyed_and_cached(tmp_path, monkeypatch):
-    """nvcc gets the sm_90a flags and the output path; a second build of the
-    same sources does not run it again."""
+    """One nvcc per source gets the sm_90a flags and an object path, one more
+    links the objects into the keyed library; a second build of the same
+    sources runs none of them again."""
     calls = tmp_path / "calls"
     _fake_nvcc(tmp_path, monkeypatch,
                f'echo "$@" >> {calls}\n'
@@ -128,11 +129,15 @@ def test_build_is_keyed_and_cached(tmp_path, monkeypatch):
     assert "Used 20 registers" in path.with_suffix(".so.log").read_text()
     assert _build.build() == path
     lines = calls.read_text().splitlines()
-    assert len(lines) == 1
-    assert "arch=compute_90a,code=sm_90a" in lines[0]
-    assert "-fmad=false" in lines[0]
-    assert lines[0].endswith("landmark_block_solve.cu")
-    assert os.path.basename(str(_build.SOURCES[0])) in lines[0]
+    assert len(lines) == len(_build.SOURCES) + 1
+    assert all("arch=compute_90a,code=sm_90a" in ln and "-fmad=false" in ln
+               for ln in lines)
+    compiles = sorted(ln for ln in lines if " -c " in ln)
+    assert [ln.rsplit(" ", 1)[1] for ln in compiles] == sorted(
+        map(str, _build.SOURCES))
+    (link,) = [ln for ln in lines if " -c " not in ln]
+    assert all(os.path.basename(str(s))[:-3] + ".o" in link
+               for s in _build.SOURCES)
 
 
 def test_engine_solves_landmarks_at_three_sites(monkeypatch):
