@@ -52,7 +52,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      and on the CPU: the same rows relinearized in every update, CG
      iteration counts within 2, estimates to 1e-8, error to 1e-9 relative;
      then the 20 oldest poses marginalized out and two more updates, same
-     comparison;
+     comparison; then checkpointing on the card: the same stream saved
+     with save_isam2 at update 100, loaded back onto the card and streamed
+     on ends within 1e-12 of the uninterrupted engine, and an lm_run of 6
+     iterations on a 300-pose graph equals 3 iterations, save_lm_carry,
+     load_lm_carry and 3 more (lambda equal, error and values to 1e-12);
  10. the ISAM2 stream at full size in float32: the 10000 poses and 18089
      factors of phase 7's graph through the engine with the defaults of
      examples/isam2_city10000.py (40 CG iterations, tolerance 1e-3,
@@ -61,7 +65,39 @@ Phases, in order; any failure raises and the script exits non-zero:
      ISAM_SWITCH_POSE and after every measurement from there to the end,
      then six polishing updates; gates: the error is finite and at most 1.05
      times the float64 batch optimum of phase 7, the aligned ATE rmse is
-     below 0.5 m, and the chain_factorize kernel was launched.
+     below 0.5 m, and the chain_factorize kernel was launched;
+ 11. the 2D file path at city10000 scale (tools/pose_graph_g2o.py's steps):
+     phase 7's 10000-pose graph written with write_g2o_2d and read back
+     with load_2d onto the card (its error at the written values equal to
+     the original's to 1e-9 relative, float64; read as "g2o", since
+     noise_format="auto" takes the writer's diagonal information for a
+     covariance, whose error is printed beside it),
+     lago_init_2d on the card (20000 unknowns: the PCG branch),
+     make_plan(max_part_size=128) and optimize_lm(solver="schur",
+     max_iterations=30) in float32 and float64; gates: the error decreases,
+     float32 ends within 1e-3 relative of float64, float64 within 1% of
+     phase 7's float64 optimum, aligned ATE rmse < 0.5 m;
+ 12. the 3D file path at the shape of the reference's sphere2500.txt: a
+     seeded stand-in (2500 poses, 50 rings of 50 on a sphere of radius
+     50 m, 2499 odometry edges and 2450 closures to the ring below,
+     measurements the true relative pose composed with Exp(xi),
+     xi ~ N(0, diag(0.01^2 I, 0.05^2 I)), information the inverse of that
+     covariance, vertices the composed noisy odometry) written as
+     VERTEX_SE3:QUAT / EDGE_SE3:QUAT, then load_3d, chordal_init_f64,
+     make_plan(max_part_size=128) and optimize_lm(solver="schur",
+     max_iterations=30) in float32 and float64 on the card, and the device
+     chordal_init in float32 and float64 (the errors it reaches are
+     printed, not gated); gates: chordal error < odometry error, LM error
+     decreasing, float32 within 1e-3 relative of float64, float64 within
+     20% of the optimum's expectation 7350 (half of 6 x 4950 - 6 x 2500),
+     SE(3)-aligned ATE rmse against the truth below SPHERE_ATE_BOUND; the
+     result written with write_g2o_3d(fmt="quat") and read back has the
+     final error to 1e-9 (float64);
+ 13. factor breadth on the card: for every name residual_by_name knows
+     (slam/factors.py:residual_names), 4096 seeded factors
+     (tools/factor_samples.py) linearized on the card and on the CPU in
+     float64: residuals and Jacobians agree to rtol 1e-10 (with an atol of
+     1e-10 times the largest entry).
 
 The last two lines are a JSON record of the kernels ({"kernels": [...]},
 each with the launch count from its main path: the timed run of phase 5,
@@ -69,27 +105,34 @@ the stream of phase 10) and {"ok": true, "device": {...}}.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from gtsam_personal_tpu_torch import config, native
-from gtsam_personal_tpu_torch.core.graph import GraphBuilder
-from gtsam_personal_tpu_torch.core.values import Layout, values_from_numpy
+from gtsam_personal_tpu_torch.core.graph import FactorBatch, GraphBuilder
+from gtsam_personal_tpu_torch.core.values import (Layout, Values,
+                                                  values_from_numpy)
 from gtsam_personal_tpu_torch.geometry import se3
 from gtsam_personal_tpu_torch.linear import schur, solvers
-from gtsam_personal_tpu_torch.linear.linearize import linearize
+from gtsam_personal_tpu_torch.linear.linearize import (linearize,
+                                                       linearize_batch)
+from gtsam_personal_tpu_torch.linear.noise import NoiseModel
 from gtsam_personal_tpu_torch.nonlinear import isam2, optimizers
 from gtsam_personal_tpu_torch.ops import _build, chain
 from gtsam_personal_tpu_torch.ops.block_solve import (
     landmark_block_solve, landmark_block_solve_ref)
 from gtsam_personal_tpu_torch.ops.chain import chain_factorize
 from gtsam_personal_tpu_torch.sfm import ba, ba_pack, synthetic
-from gtsam_personal_tpu_torch.slam import factors as F, manhattan, metrics
-from gtsam_personal_tpu_torch.tools import profile_isam2
+from gtsam_personal_tpu_torch.slam import (dataset, factors as F, initialize,
+                                           manhattan, metrics)
+from gtsam_personal_tpu_torch.tools import factor_samples, profile_isam2
+from gtsam_personal_tpu_torch.utils import serialization
 from gtsam_personal_tpu_torch.tools.profile_isam2 import (
     ISAM_N, ISAM_PARAMS, ISAM_UPDATE_EVERY)
 from gtsam_personal_tpu_torch.tools.profile_pose_graph import (
@@ -118,6 +161,14 @@ CHAIN_RTOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 # or so of the 18088 measurements), and every ISAM_UPDATE_EVERY measurements
 # before it: at about 0.1 s an update, more would not fit the script's time
 ISAM_SWITCH_POSE = 9500
+# phase 12: the stand-in of sphere2500.txt and its gates
+SPHERE_RINGS, SPHERE_PER_RING, SPHERE_RADIUS = 50, 50, 50.0
+SPHERE_SIGMAS = [0.01] * 3 + [0.05] * 3     # rad, m; tangent (omega, v)
+SPHERE_OPTIMUM = 0.5 * (6 * 4950 - 6 * 2500)
+# the aligned ATE rmse bound: the float64 run of the phase on the CPU ends
+# at 0.1041 m (float32 the same), and the bound leaves half of that again
+SPHERE_ATE_BOUND = 0.15
+BREADTH_K = 4096
 
 
 def card_line() -> str:
@@ -663,6 +714,7 @@ def phase_isam_parity(dev):
     print(f"[9] {n}-pose float64 stream, {len(data['ij'])} measurements, "
           f"chain:se2, CG to 1e-10; 20 poses marginalized; "
           f"chain_factorize.launches on the card = {launches}")
+    return data, card[0][2:]
 
 
 def phase_isam_main(dev, batch_optimum):
@@ -730,6 +782,308 @@ def phase_isam_main(dev, batch_optimum):
         raise RuntimeError("the stream launched no chain_factorize kernel")
     return launches
 
+def phase_checkpoint(dev, data, ref, tmp):
+    """save_isam2 / load_isam2 at update 100 of phase 9's stream on the
+    card, against the uninterrupted card engine `ref` (estimates, error);
+    then an lm_run restarted through save_lm_carry / load_lm_carry."""
+    isam = profile_isam2.make_engine(data, device=dev, dtype=torch.float64,
+                                     cg_maxiter=300, cg_tol=1e-10)
+    profile_isam2.run_stream(isam, data, 0, 100)
+    path = f"{tmp}/isam2_update100.npz"
+    t0 = time.perf_counter()
+    serialization.save_isam2(path, isam)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = serialization.load_isam2(path, device=dev)
+    t_load = time.perf_counter() - t0
+    profile_isam2.run_stream(resumed, data, 100, None)
+    est, err = resumed.estimate_array("se2"), resumed.error()
+    gap = np.abs(est - ref[0]).max()
+    print(f"[9] checkpoint: saved at update 100 ({t_save:.2f} s, "
+          f"{os.path.getsize(path) / 2**20:.2f} MiB), loaded "
+          f"onto the card ({t_load:.2f} s), streamed on to the end: "
+          f"estimates max |resumed - uninterrupted| = {gap:.2e} (atol "
+          f"1e-12), error {err:.12g} against {ref[1]:.12g}")
+    if not gap <= 1e-12 or not abs(err - ref[1]) <= 1e-12 * abs(ref[1]):
+        raise RuntimeError(f"[9] the resumed ISAM2 stream left the "
+                           f"uninterrupted one: {gap}, {err} vs {ref[1]}")
+
+    graph, initial, _ = manhattan.make_manhattan(300, seed=3, device=dev,
+                                                 dtype=torch.float64)
+    plan = schur.make_plan(graph, {"se2": 300}, max_part_size=32)
+    params = optimizers.Params(solver="schur")
+    err0 = optimizers.graph_error(graph, initial)
+    full = optimizers.lm_run(graph, initial, 1e2, err0, 6, params, plan)
+    half = optimizers.lm_run(graph, initial, 1e2, err0, 3, params, plan)
+    serialization.save_lm_carry(f"{tmp}/lm_carry.npz", *half)
+    carry = serialization.load_lm_carry(f"{tmp}/lm_carry.npz", device=dev,
+                                        dtype=torch.float64)
+    rest = optimizers.lm_run(graph, *carry, 3, params, plan)
+    vgap = (rest[0]["se2"] - full[0]["se2"]).abs().max().item()
+    egap = abs(float(rest[2]) - float(full[2])) / float(full[2])
+    print(f"[9] lm_run 6 iterations == 3 + save_lm_carry/load_lm_carry + 3 "
+          f"on the card: lambda {float(rest[1]):g} and {float(full[1]):g}, "
+          f"error rel gap {egap:.2e}, values max gap {vgap:.2e}, bitwise "
+          f"equal: {bool(torch.equal(rest[0]['se2'], full[0]['se2']))}")
+    if (float(rest[1]) != float(full[1]) or not egap <= 1e-12
+            or not vgap <= 1e-12):
+        raise RuntimeError("[9] the restarted lm_run left the "
+                           "uninterrupted one")
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, dev):
+    """(fn(), seconds between synchronizes)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _peak_mib(dev):
+    return (torch.cuda.max_memory_allocated() / 2**20
+            if torch.device(dev).type == "cuda" else float("nan"))
+
+
+def _lm_from_file(graph, initial, dev, label, max_part=128):
+    """make_plan + optimize_lm(schur, 30 iterations) as the tool runs them;
+    returns (result, plan seconds, LM seconds, initial error)."""
+    err0 = float(optimizers.graph_error(graph, initial))
+    plan, t_plan = _timed(lambda: schur.make_plan(
+        graph, initial.counts(), max_part_size=max_part), dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res, t_lm = _timed(lambda: optimizers.optimize_lm(
+        graph, initial, optimizers.Params(solver="schur", max_iterations=30),
+        plan=plan), dev)
+    print(f"[{label}] plan {plan.stats()} in {t_plan:.2f} s; LM error "
+          f"{err0:.6g} -> {res.error:.9g} in {res.iterations} iterations, "
+          f"{t_lm:.3f} s ({res.iterations / t_lm:.3f} it/s), converged "
+          f"{res.converged}, lambda {res.lambda_final:g}; peak memory "
+          f"{_peak_mib(dev):.0f} MiB")
+    return res, t_plan, t_lm, err0
+
+
+def phase_file_2d(dev, batch_optimum, tmp):
+    """The 2D file path at city10000 scale under its gates."""
+    graph, initial, truth = manhattan.make_manhattan(
+        POSE_N, seed=42, device=dev, dtype=torch.float64)
+    path = f"{tmp}/manhattan{POSE_N}.g2o"
+    _, t_write = _timed(lambda: dataset.write_g2o_2d(path, initial, graph),
+                        dev)
+    e_orig = float(graph.error(initial))
+    # the writer's diagonal information matrices have the zero pattern that
+    # noise_format="auto" takes for a covariance (the reference's rule,
+    # dataset.cpp:219): read as "g2o", the format the writer writes, and
+    # print what "auto" makes of the file
+    g_auto, _ = dataset.load_2d(path, noise_format="auto", device=dev,
+                                dtype=torch.float64)
+    e_auto = float(g_auto.error(initial))
+    del g_auto
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        (g, v), t_parse = _timed(lambda: dataset.load_2d(
+            path, noise_format="g2o", device=dev, dtype=dtype), dev)
+        if dtype == torch.float64:
+            e_read = float(g.error(initial))
+            print(f"[11] {POSE_N} poses, {graph.num_factors} factors: "
+                  f"written in {t_write:.2f} s; read back as g2o in "
+                  f"{t_parse:.2f} s: error at the written values "
+                  f"{e_read:.12g}, original graph {e_orig:.12g}; read back "
+                  f"with noise_format='auto' (taken for a covariance): "
+                  f"{e_auto:.12g}")
+            if not abs(e_read - e_orig) <= 1e-9 * abs(e_orig):
+                raise RuntimeError(f"[11] the graph read back has error "
+                                   f"{e_read}, the original {e_orig}")
+        n = v["se2"].shape[0]
+        init, t_lago = _timed(lambda: initialize.lago_init_2d(g, n), dev)
+        e_lago = float(optimizers.graph_error(g, init))
+        print(f"[11] {name}: parse {t_parse:.2f} s; lago_init_2d (PCG "
+              f"branch) {t_lago:.2f} s: error {float(g.error(v)):.6g} -> "
+              f"{e_lago:.6g}")
+        res, t_plan, t_lm, _ = _lm_from_file(g, init, dev, 11)
+        ate = metrics.ate(res.values["se2"][:, :2].cpu().numpy(),
+                          truth[:, :2])["rmse"]
+        results[name] = (e_lago, res.error, ate)
+        print(f"[11] {name}: seconds per step: parse {t_parse:.2f}, LAGO "
+              f"{t_lago:.2f}, plan {t_plan:.2f}, LM {t_lm:.2f}; "
+              f"{res.iterations} LM iterations; ATE rmse {ate:.4f} m")
+    e0, e64, ate64 = results["float64"]
+    _, e32, ate32 = results["float32"]
+    if not (np.isfinite(e32) and e32 < e0 and e64 < e0):
+        raise RuntimeError(f"gate: [11] error did not decrease: {e0} -> "
+                           f"{e64} (float64), {e32} (float32)")
+    if not abs(e32 - e64) <= 1e-3 * e64:
+        raise RuntimeError(f"gate: [11] float32 {e32} not within 1e-3 of "
+                           f"float64 {e64}")
+    if not abs(e64 - batch_optimum) <= 0.01 * batch_optimum:
+        raise RuntimeError(f"gate: [11] float64 {e64} not within 1% of the "
+                           f"batch optimum {batch_optimum}")
+    if not max(ate32, ate64) < 0.5:
+        raise RuntimeError(f"gate: [11] ATE rmse {ate32}, {ate64} >= 0.5 m")
+    print(f"[11] gates passed: float32 vs float64 rel "
+          f"{abs(e32 - e64) / e64:.2e} (< 1e-3); float64 {e64:.9g} vs phase "
+          f"7's {batch_optimum:.9g}, rel {abs(e64 - batch_optimum) / batch_optimum:.2e} "
+          f"(< 1e-2); ATE rmse {ate32:.4f} / {ate64:.4f} m (< 0.5)")
+
+
+def sphere_standin(seed=0):
+    """(truth [N, 3, 4], edges [(i, j)], measurements [K, 3, 4], vertices
+    [N, 3, 4]) of the stand-in of sphere2500.txt, in numpy float64."""
+    rng = np.random.default_rng(seed)
+    lat = -np.pi / 2 + np.pi * (np.arange(SPHERE_RINGS) + 1) / (
+        SPHERE_RINGS + 1)
+    lon = 2 * np.pi * np.arange(SPHERE_PER_RING) / SPHERE_PER_RING
+    la, lo = [a.ravel() for a in np.meshgrid(lat, lon, indexing="ij")]
+    z = np.stack([np.cos(la) * np.cos(lo), np.cos(la) * np.sin(lo),
+                  np.sin(la)], 1)                   # outward normal
+    x = np.stack([-np.sin(lo), np.cos(lo), np.zeros_like(lo)], 1)  # heading
+    R = np.stack([x, np.cross(z, x), z], 2)
+    truth = np.concatenate([R, SPHERE_RADIUS * z[:, :, None]], 2)
+    n = len(truth)
+    edges = [(k, k + 1) for k in range(n - 1)] + [
+        (k, k - SPHERE_PER_RING) for k in range(SPHERE_PER_RING, n)]
+    T = torch.tensor(truth)
+    ij = torch.tensor(edges)
+    xi = rng.normal(size=(len(edges), 6)) * np.asarray(SPHERE_SIGMAS)
+    meas = se3.compose(se3.between(T[ij[:, 0]], T[ij[:, 1]]),
+                       se3.expmap(torch.tensor(xi))).numpy()
+    verts = [truth[0]]
+    for k in range(n - 1):
+        verts.append(se3.compose(torch.tensor(verts[-1]),
+                                 torch.tensor(meas[k])).numpy())
+    return truth, edges, meas, np.stack(verts)
+
+
+def write_sphere(path):
+    """Write the stand-in as VERTEX_SE3:QUAT / EDGE_SE3:QUAT text; returns
+    the truth."""
+    truth, edges, meas, verts = sphere_standin()
+    gb = GraphBuilder()
+    noise = F.diag_noise(SPHERE_SIGMAS)
+    for (i, j), m in zip(edges, meas):
+        F.add_between(gb, "se3", i, j, m, noise)
+    dataset.write_g2o_3d(path, values_from_numpy(
+        {"se3": verts}, device="cpu", dtype=torch.float64),
+        gb.build(device="cpu", dtype=torch.float64), fmt="quat")
+    return truth
+
+
+def _ate3(values, truth):
+    return metrics.ate(values["se3"][:, :, 3].cpu().numpy(),
+                       truth[:, :, 3])["rmse"]
+
+
+def phase_file_3d(dev, tmp):
+    """The 3D file path on the sphere2500-shaped stand-in under its
+    gates."""
+    path = f"{tmp}/sphere_standin.g2o"
+    truth, t_write = _timed(lambda: write_sphere(path), dev)
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        (g, v), t_parse = _timed(lambda: dataset.load_3d(
+            path, device=dev, dtype=dtype), dev)
+        n = v["se3"].shape[0]
+        e_odo = float(optimizers.graph_error(g, v))
+        init, t_init = _timed(lambda: initialize.chordal_init_f64(
+            g, n, device=dev, dtype=dtype), dev)
+        e_chordal = float(optimizers.graph_error(g, init))
+        print(f"[12] {name}: {n} poses, {g.num_factors - 1} edges; written "
+              f"in {t_write:.2f} s, parsed in {t_parse:.2f} s; odometry "
+              f"error {e_odo:.6g}; chordal_init_f64 (host) {t_init:.2f} s: "
+              f"error {e_chordal:.6g}")
+        res, t_plan, t_lm, _ = _lm_from_file(g, init, dev, 12)
+        ate = _ate3(res.values, truth)
+        results[name] = (e_odo, e_chordal, res.error, ate)
+        print(f"[12] {name}: seconds per step: parse {t_parse:.2f}, chordal "
+              f"{t_init:.2f}, plan {t_plan:.2f}, LM {t_lm:.2f}; "
+              f"{res.iterations} LM iterations; SE(3)-aligned ATE rmse "
+              f"{ate:.4f} m (odometry {_ate3(v, truth):.4f}, chordal "
+              f"{_ate3(init, truth):.4f})")
+        dv, t_dev = _timed(lambda: initialize.chordal_init(g, n), dev)
+        print(f"[12] {name}: device chordal_init (PCG branch, {t_dev:.2f} "
+              f"s) reaches error {float(optimizers.graph_error(g, dv)):.6g}"
+              f" (host float64 chordal {e_chordal:.6g}); a record, not a "
+              f"gate")
+        if dtype == torch.float64:
+            out = f"{tmp}/sphere_result.g2o"
+            dataset.write_g2o_3d(out, res.values, g, fmt="quat")
+            g2, v2 = dataset.load_3d(out, device=dev, dtype=dtype)
+            e_re = float(optimizers.graph_error(g2, v2))
+            print(f"[12] result written and read back: odometry error of "
+                  f"the reload {e_re:.12g}, final {res.error:.12g}")
+            if not abs(e_re - res.error) <= 1e-9 * res.error:
+                raise RuntimeError(f"[12] round trip: {e_re} vs "
+                                   f"{res.error}")
+    e_odo, e_ch, e64, ate64 = results["float64"]
+    _, _, e32, ate32 = results["float32"]
+    if not e_ch < e_odo:
+        raise RuntimeError(f"gate: [12] chordal error {e_ch} not below the "
+                           f"odometry error {e_odo}")
+    if not (np.isfinite(e32) and e64 < e_ch and e32 < e_ch):
+        raise RuntimeError(f"gate: [12] LM error did not decrease: {e_ch} "
+                           f"-> {e64}, {e32}")
+    if not abs(e32 - e64) <= 1e-3 * e64:
+        raise RuntimeError(f"gate: [12] float32 {e32} not within 1e-3 of "
+                           f"float64 {e64}")
+    if not abs(e64 - SPHERE_OPTIMUM) <= 0.2 * SPHERE_OPTIMUM:
+        raise RuntimeError(f"gate: [12] float64 {e64} not within 20% of "
+                           f"{SPHERE_OPTIMUM}")
+    if not max(ate32, ate64) < SPHERE_ATE_BOUND:
+        raise RuntimeError(f"gate: [12] ATE rmse {ate32}, {ate64} >= "
+                           f"{SPHERE_ATE_BOUND} m")
+    print(f"[12] gates passed: chordal {e_ch:.6g} < odometry {e_odo:.6g}; "
+          f"float32 vs float64 rel {abs(e32 - e64) / e64:.2e} (< 1e-3); "
+          f"float64 {e64:.6g} vs expectation {SPHERE_OPTIMUM:g} (within "
+          f"20%); ATE rmse {ate32:.4f} / {ate64:.4f} m (< "
+          f"{SPHERE_ATE_BOUND})")
+
+
+def phase_breadth(dev):
+    """Every name residual_by_name knows: 4096 seeded factors linearized on
+    the card and on the CPU in float64."""
+    names = F.residual_names()
+    worst = (0.0, None)
+    t0 = time.perf_counter()
+    for name in names:
+        s = factor_samples.sample(name, BREADTH_K, seed=13)
+        out = []
+        for d in (dev, torch.device("cpu")):
+            blocks, idx = {}, []
+            for grp, p in zip(s["groups"], s["points"]):
+                off = blocks[grp].shape[0] if grp in blocks else 0
+                blocks[grp] = (np.concatenate([blocks[grp], p])
+                               if grp in blocks else p)
+                idx.append(np.arange(BREADTH_K) + off)
+            batch = FactorBatch(
+                name, F.residual_by_name(name), s["groups"], s["rdim"],
+                torch.tensor(np.stack(idx, 1), device=d),
+                {k: torch.tensor(v, device=d) for k, v in s["meas"].items()},
+                NoiseModel("unit"))
+            lb = linearize_batch(batch, Values({
+                grp: torch.tensor(p, device=d) for grp, p in blocks.items()}))
+            out.append([lb.r.cpu()] + [J.cpu() for J in lb.Js])
+        for what, a, b in zip(["r"] + [f"J{k}" for k in range(9)], *out):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            torch.testing.assert_close(a, b, rtol=1e-10,
+                                       atol=1e-10 * max(scale, 1e-300),
+                                       msg=f"{name} {what}")
+            if scale > 0 and err / scale > worst[0]:
+                worst = (err / scale, f"{name} {what}")
+    print(f"[13] {len(names)} residual names, {BREADTH_K} factors each, "
+          f"linearized in float64 on the card and on the CPU in "
+          f"{time.perf_counter() - t0:.1f} s: residuals and Jacobians agree "
+          f"to rtol 1e-10; largest gap {worst[0]:.2e} of the largest entry "
+          f"({worst[1]})")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -748,8 +1102,13 @@ def main():
     phase_se3_parity(dev)
     batch_optimum = phase_pose_main(dev)
     chain_record = phase_chain(dev)
-    phase_isam_parity(dev)
-    chain_launches = phase_isam_main(dev, batch_optimum)
+    data, stream_end = phase_isam_parity(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_checkpoint(dev, data, stream_end, tmp)
+        chain_launches = phase_isam_main(dev, batch_optimum)
+        phase_file_2d(dev, batch_optimum, tmp)
+        phase_file_3d(dev, tmp)
+    phase_breadth(dev)
     print(card)
     print(json.dumps({"kernels": [
         {"name": "landmark_block_solve", "route": "cuda",

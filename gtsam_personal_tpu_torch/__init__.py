@@ -3,8 +3,12 @@
 The port runs the bundle-adjustment Levenberg-Marquardt main path
 (`sfm/ba_pack.py:ba_lm_run_pk`) on one NVIDIA H100, with the landmark 3x3
 block solve as a hand-written CUDA kernel (`ops/block_solve.py`,
-`csrc/landmark_block_solve.cu`), and the pose-graph batch LM path
-(`nonlinear/optimizers.py:lm_run` over `linear/schur.py:solve_partitioned`).
+`csrc/landmark_block_solve.cu`), the pose-graph batch LM path
+(`nonlinear/optimizers.py:lm_run` over `linear/schur.py:solve_partitioned`),
+pose-graph SLAM from g2o/TORO files (`tools/pose_graph_g2o.py` over
+`slam/dataset.py` and `slam/initialize.py`) with the factor library of
+`slam/factors.py` and `slam/unstable.py`, the ISAM2 stream
+(`nonlinear/isam2.py`) and checkpointing (`utils/serialization.py`).
 The JAX package `gtsam_personal_tpu` is the
 reference it is tested against; this package imports torch and never jax.
 

@@ -1,8 +1,8 @@
 """SE(3) on batches of rigid transforms stored as [..., 3, 4] = [R | t].
 
 JAX counterpart: gtsam_personal_tpu/geometry/se3.py:identity, make, rotation,
-translation, expmap, logmap, compose, inverse, between, transform_to,
-retract, local. Tangent xi = (omega, v), rotation first (reference:
+translation, expmap, logmap, compose, inverse, between, transform_from,
+transform_to, retract, local, adjoint, range_to. Tangent xi = (omega, v), rotation first (reference:
 Pose3.h:147-150); `retract` is the right retraction p * Exp(xi). The
 functions take any number of leading batch axes, and one element under
 `torch.func.vmap`.
@@ -65,6 +65,11 @@ def between(a, b):
     return compose(inverse(a), b)
 
 
+def transform_from(p, pt):
+    """Point [..., 3] of the pose's frame into the world: R pt + t."""
+    return _matvec(p[..., :3], pt) + p[..., 3]
+
+
 def transform_to(p, pt):
     """World point [..., 3] into the frame of pose p: R^T (pt - t).
 
@@ -81,3 +86,17 @@ def retract(p, xi):
 
 def local(a, b):
     return logmap(between(a, b))
+
+
+def adjoint(p):
+    """AdjointMap [..., 6, 6] in (omega, v) ordering (reference:
+    Pose3::AdjointMap, Pose3.h:156)."""
+    R = p[..., :3]
+    top = torch.cat([R, torch.zeros_like(R)], dim=-1)
+    bot = torch.cat([so3.hat(p[..., 3]) @ R, R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def range_to(p, pt):
+    d = pt - p[..., 3]
+    return torch.sqrt((d * d).sum(-1))

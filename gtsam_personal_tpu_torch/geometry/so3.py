@@ -2,7 +2,7 @@
 
 JAX counterpart: gtsam_personal_tpu/geometry/so3.py:hat, vee, identity,
 _trig_coeffs, expmap, logmap, compose, inverse, between, rotate, unrotate,
-retract, local, left_jacobian, left_jacobian_inverse. The JAX functions act
+retract, local, left_jacobian, left_jacobian_inverse, adjoint, normalize. The JAX functions act
 on one element and are batched with `jax.vmap`; these take any number of
 leading batch axes, and one element under `torch.func.vmap`.
 
@@ -172,3 +172,18 @@ def retract(R, w):
 def local(R1, R2):
     """Inverse retraction Log(R1^T R2)."""
     return logmap(between(R1, R2))
+
+
+def adjoint(R):
+    """The adjoint map of SO(3) is R itself."""
+    return R
+
+
+def normalize(R):
+    """Project near-rotations [..., 3, 3] onto SO(3) by SVD (reference:
+    Rot3::ClosestTo): U diag(1, 1, d) V^T with d = det(U V^T), the
+    determinant itself as the JAX package takes it, not its sign."""
+    U, _, Vh = torch.linalg.svd(R)
+    d = torch.linalg.det(U @ Vh)
+    return (U * torch.stack([torch.ones_like(d), torch.ones_like(d), d],
+                            dim=-1)[..., None, :]) @ Vh

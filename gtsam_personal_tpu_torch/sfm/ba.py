@@ -61,7 +61,7 @@ def state_from_bal(prob: BalProblem, *, device, dtype):
 def _residual_one(pose, cal, point, uv):
     """Reprojection residual, batched over leading axes (reference:
     GeneralSFMFactor::evaluateError = camera.project(point) - measured)."""
-    return cam_geo.project_point(pose, point, cal) - uv
+    return cam_geo.project_point(pose, point, cal, "cal3bundler") - uv
 
 
 def retract_ba(state: BAState, xc, xp) -> BAState:

@@ -1,1 +1,2 @@
-"""SLAM factors, the Manhattan-world generator and trajectory metrics."""
+"""SLAM factors, dataset I/O, initialization, the Manhattan-world generator
+and trajectory metrics."""

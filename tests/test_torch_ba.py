@@ -88,7 +88,15 @@ def test_port_imports_no_jax():
             "gtsam_personal_tpu_torch.nonlinear.isam2",
             "gtsam_personal_tpu_torch.linear.marginal",
             "gtsam_personal_tpu_torch.ops.chain",
-            "gtsam_personal_tpu_torch.tools.profile_isam2"} <= set(mods)
+            "gtsam_personal_tpu_torch.tools.profile_isam2",
+            "gtsam_personal_tpu_torch.slam.dataset",
+            "gtsam_personal_tpu_torch.slam.initialize",
+            "gtsam_personal_tpu_torch.slam.unstable",
+            "gtsam_personal_tpu_torch.geometry.extra",
+            "gtsam_personal_tpu_torch.geometry.fundamental",
+            "gtsam_personal_tpu_torch.tools.pose_graph_g2o",
+            "gtsam_personal_tpu_torch.tools.factor_samples",
+            "gtsam_personal_tpu_torch.utils.serialization"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -228,4 +228,4 @@ def test_landmark_residual_and_jacobians_match(name):
 
 def test_residual_by_name_names_what_it_knows():
     with pytest.raises(ValueError, match="bearing_range_2d"):
-        F.residual_by_name("stereo")
+        F.residual_by_name("no_such_factor")

@@ -97,7 +97,8 @@ def test_project_point():
     ref = np.asarray(jax.vmap(
         lambda a, b, c: jcam.project_point(a, b, c, "cal3bundler"))(
             jnp.asarray(p), jnp.asarray(pt), jnp.asarray(cal)))
-    got = cameras.project_point(_t(p), _t(pt), _t(cal)).numpy()
+    got = cameras.project_point(_t(p), _t(pt), _t(cal),
+                                "cal3bundler").numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-12, atol=0)
     # the depths of the points built on the image plane are rounding noise
     # (~1e-16), which a relative tolerance alone cannot compare

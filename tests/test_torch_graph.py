@@ -171,7 +171,8 @@ def test_graph_build_stacks_the_same_batches(fill, group):
 def test_graph_from_numpy_rejects_unknown_residual():
     with pytest.raises(ValueError, match="no residual function"):
         graph_mod.graph_from_numpy(
-            [{"name": "stereo", "groups": ("se3", "point3"), "rdim": 3,
+            [{"name": "no_such_factor", "groups": ("se3", "point3"),
+              "rdim": 3,
               "idx": np.zeros((1, 2)), "meas": {}, "noise": {"kind": "unit"}}],
             F.residual_by_name, device="cpu", dtype=F64)
 
