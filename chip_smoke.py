@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, numbered as in the order they were added; any failure raises and
+the script exits non-zero. They run in this order: 1-8, 10-14, then 16 and
+17 beside two more processes of this script (`--child parity TMP`: phases 9
+and 15, which time nothing; `--child smart TMP`: phase 18's full-size
+stream), then the rest of 18; the kernels are timed before the other
+processes start or after they end:
   1. require CUDA (there is no CPU fallback) and print the card's name and
      power limit as nvidia-smi reports them;
   2. build the CUDA kernel from csrc/ with nvcc for sm_90a (set-up time);
@@ -97,11 +102,54 @@ Phases, in order; any failure raises and the script exits non-zero:
      (slam/factors.py:residual_names), 4096 seeded factors
      (tools/factor_samples.py) linearized on the card and on the CPU in
      float64: residuals and Jacobians agree to rtol 1e-10 (with an atol of
-     1e-10 times the largest entry).
+     1e-10 times the largest entry);
+ 14. the preintegration kernels (ops/preintegration.py) against their plain
+     versions on the card, preint_tangent and preint_rotation in both modes,
+     at 2000 segments of 200 samples and on a ragged batch of 1, 37 and 200
+     samples: float64 within 1e-10 of the largest entry of each output,
+     float32 no further from the float64 plain version than 4 times the
+     plain float32's own distance (floor 1e-4 of the largest entry); the
+     manifold and AHRS entry points launch preint_rotation; device time per
+     launch (CUDA events; a torch.profiler pass beside them), the plain
+     version's and the bound (bytes, operations and the dependent chain of
+     200 steps), for the batch path's launch and for the stream's one
+     segment;
+ 15. the IMU + GPS paths of tools/imu_gps_vio.py on a 20-fix stand-in of
+     imuAndGPSdata.csv (write_imu_gps_csv) in float64, card against CPU:
+     batch LM error to 1e-9 relative; the ISAM2 stream at the example's
+     settings (3 updates a fix) with the same rows relinearized and
+     estimates to 1e-8;
+ 16. the batch path at 2000 fixes (400 000 samples, a 33-minute drive): one
+     preint_tangent launch, dead reckoning (the JAX example's start, whose
+     drift is printed), partitioned-Schur LM (parts of at most 128) in
+     float64 from the GPS-aided start; gates: the error finite and
+     decreasing, the mean position error against the stand-in's truth below
+     1 m; seconds per step;
+ 17. the stream at VIO_STREAM_FIXES (500) fixes with the example's settings
+     (float64, superchain:se3+vel3+imu_bias, CG 500 at 1e-10,
+     relinearization 0.01, 3 updates a fix) but one: the preconditioner is
+     rebuilt every update (VIO_STREAM_REFRESH; the engine's default of every
+     10 takes CG to its cap in both packages); gates: the final error at
+     most 1.05 times the float64 batch optimum of the same graph, mean
+     position error below 1 m,
+     preint_tangent launched once per fix, chain_factorize launched (at
+     d = 15); ms per fix and per update, CG iterations per update, and
+     chain_factorize's time at the stream's capacity and d = 15;
+ 18. smart factors streamed into ISAM2 (tools/isam2_smart_factor.py): the
+     JAX example's scene (12 poses, 30 landmarks, T = 4) in float64 with CG
+     run to convergence, card against CPU, estimates to 1e-8; then
+     SMART_POSES and SMART_LANDMARKS (500 and 2500: five tracks closing per
+     pose) with the example's engine defaults and SMART_REFINE_ITERS (10)
+     Gauss-Newton steps a triangulation, run by its own process (its ms per
+     update, and phases 16-17's times, are taken side by side with it and
+     with phases 9 and 15); gates: the error at most 1.05 times
+     the batch optimum of the same graph, the aligned ATE rmse below the
+     example's bound of 2 m; ms per update. chain_factorize's time at
+     phase 17's capacity and d = 15 is taken after that process has ended.
 
 The last two lines are a JSON record of the kernels ({"kernels": [...]},
-each with the launch count from its main path: the timed run of phase 5,
-the stream of phase 10) and {"ok": true, "device": {...}}.
+each with the launch count from its main path, named in its
+`launches_from`) and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -123,8 +171,12 @@ from gtsam_personal_tpu_torch.linear import schur, solvers
 from gtsam_personal_tpu_torch.linear.linearize import (linearize,
                                                        linearize_batch)
 from gtsam_personal_tpu_torch.linear.noise import NoiseModel
+from gtsam_personal_tpu_torch.core import manifolds
+from gtsam_personal_tpu_torch.navigation import preintegration as pre
+from gtsam_personal_tpu_torch.navigation import scenario
 from gtsam_personal_tpu_torch.nonlinear import isam2, optimizers
 from gtsam_personal_tpu_torch.ops import _build, chain
+from gtsam_personal_tpu_torch.ops import preintegration as preint_ops
 from gtsam_personal_tpu_torch.ops.block_solve import (
     landmark_block_solve, landmark_block_solve_ref)
 from gtsam_personal_tpu_torch.ops.chain import chain_factorize
@@ -132,6 +184,8 @@ from gtsam_personal_tpu_torch.sfm import ba, ba_pack, synthetic
 from gtsam_personal_tpu_torch.slam import (dataset, factors as F, initialize,
                                            manhattan, metrics)
 from gtsam_personal_tpu_torch.tools import factor_samples, profile_isam2
+from gtsam_personal_tpu_torch.tools import imu_gps_vio as vio
+from gtsam_personal_tpu_torch.tools import isam2_smart_factor as smart_tool
 from gtsam_personal_tpu_torch.utils import serialization
 from gtsam_personal_tpu_torch.tools.profile_isam2 import (
     ISAM_N, ISAM_PARAMS, ISAM_UPDATE_EVERY)
@@ -169,7 +223,67 @@ SPHERE_OPTIMUM = 0.5 * (6 * 4950 - 6 * 2500)
 # at 0.1041 m (float32 the same), and the bound leaves half of that again
 SPHERE_ATE_BOUND = 0.15
 BREADTH_K = 4096
-
+# phases 14-18: the preintegration kernels, the IMU + GPS paths, smart
+# factors
+PREINT_T_SOURCE = "gtsam_personal_tpu_torch/csrc/preint_tangent.cu"
+PREINT_T_REPLACES = "gtsam_personal_tpu/navigation/preintegration.py:112"
+PREINT_R_SOURCE = "gtsam_personal_tpu_torch/csrc/preint_rotation.cu"
+PREINT_R_REPLACES = "gtsam_personal_tpu/navigation/preintegration.py:171"
+PREINT_S, PREINT_N = 2000, 200      # the batch path's launch: 2000 fixes
+# NVIDIA's H100 SXM data sheet: float64 on the tensor cores, the card's
+# highest float64 rate (34e12 outside them)
+FP64_FLOP_PER_S = 67e12
+# operations of one sample as the step's structure needs them. preint_tangent:
+# A = d zeta+/d zeta is the identity but for its theta column (three 3 x 3
+# blocks) and dt I in its p-v block, B has 6 non-zero rows and C 3, so
+# A cov A^T takes 933 (A cov 594, then the 45 entries of the symmetric
+# result 339), the B and C terms 270 (R Sa R^T and Jl Sg Jl^T and their
+# scaled sums), Si dt 12, A H - [B | C] 423, the step's coefficients and
+# their derivatives about 300; preint_rotation in manifold mode: the primal
+# about 250, each of 6 tangents about 300
+TANGENT_FLOPS, ROTATION_FLOPS = 1938, 2050
+# the dependent chain of one sample, in cycles at the card's 1.98 GHz boost
+# clock: float64 FMAs take 8 cycles, a division or a square root about 40
+# (the model of chain_factorize's row in PERF.md). preint_tangent: theta+
+# needs |theta|^2 (3 FMAs), a square root and a division, sin and cos (an
+# 8-term polynomial) and Jl^-1 w dt (3 FMAs and an add): 15 x 8 + 2 x 40 =
+# 200; the covariance's chain (10 FMAs through A cov and (A cov) A^T) is
+# shorter and runs beside it. preint_rotation: R+ = R Exp(w dt) and its
+# tangents, 4 FMAs = 32
+CHAIN_CYCLES = {"tangent": 200, "manifold": 32}
+CLOCK_HZ = 1.98e9
+# phase 17 streams the first 500 fixes (100 000 samples, 8 minutes of
+# driving); phase 15's 20 fixes are the small stand-in of both paths
+VIO_SMALL, VIO_BATCH_FIXES, VIO_STREAM_FIXES = 20, 2000, 500
+# phase 17 rebuilds the stream's preconditioner every update: with the
+# engine's default of every 10 updates (the JAX example's, which phase 15
+# and tests/test_torch_vio.py keep), updates 2 and 3 of a fix run CG with
+# the preconditioner built before the moved states were relinearized, and
+# CG climbs to its cap of 500 by fix 40; the JAX example's own stream does
+# the same on the CPU (its cap by fix 43 of a 50-fix stand-in), and at
+# that cap 500 fixes do not fit the script's time
+VIO_STREAM_REFRESH = 1
+# phase 18's full-size stream, run by its own process of this script beside
+# phases 16-17 and the parity process (one process for all of them took
+# 818 s of the 1200 allowed on a host of middling load): the JAX example's
+# circle at 500 poses and 2500 landmarks
+# (five tracks closing per pose) with the example's engine defaults
+# (block-Jacobi, CG cut at 25 iterations or 1e-4 of the entry residual,
+# relinearization 0.01, two updates a pose). Its smart factors take
+# SMART_REFINE_ITERS Gauss-Newton steps in their triangulation, not the
+# example's 3 (make_smart_residual's argument in both packages): at 500
+# poses a track spans 2.2 degrees of the circle, 3 steps leave a few tracks
+# far from their minimum (the smart error at the true poses is 41973 with
+# 3 steps, 5915 with 10 or more), and then neither the JAX example's stream
+# nor its batch LM comes near the truth (PERF.md §6; ROADMAP queue 3)
+SMART_POSES, SMART_LANDMARKS, SMART_REFINE_ITERS = 500, 2500, 10
+# the trajectory's gate: the aligned ATE rmse (slam/metrics.ate, as phases
+# 7, 10 and 12 take it) below the example's bound of 2 m on its mean
+# position error; unaligned, the batch optimum itself is 2.15 m off at 500
+# poses (a chain held by one prior drifts as a whole), so that figure is
+# printed beside it
+SMART_ATE_BOUND = 2.0
+CHILD_TIMEOUT = 900     # seconds the script waits for each child process
 
 def card_line() -> str:
     out = subprocess.run(
@@ -975,6 +1089,68 @@ def write_sphere(path):
     return truth
 
 
+# the stand-in of examples/Data/imuAndGPSdata.csv: a car at 10 m/s turning
+# at 0.05 rad/s, 200 IMU samples per GPS fix, the example's imuParams()
+VIO_OMEGA, VIO_VEL = np.array([0.0, 0.0, 0.05]), np.array([10.0, 0.0, 0.0])
+VIO_ACC_SIGMA, VIO_GYRO_SIGMA = 0.0003924, 0.000205689024915
+VIO_BIAS_ACC_SIGMA, VIO_BIAS_GYRO_SIGMA = 0.004905, 0.000001454441043
+VIO_GPS_SIGMA = 1.0
+# the constant part of the IMU's bias: accelerometer 1e-3 m/s^2 (the bias
+# prior's sigma), gyro 1e-5 rad/s
+VIO_BIAS0_SIGMAS = np.r_[np.full(3, 1e-3), np.full(3, 1e-5)]
+
+
+def _rot_to_quat(R):
+    """(qx, qy, qz, qw) of rotation matrices [n, 3, 3] (numpy)."""
+    w = 0.5 * np.sqrt(np.maximum(1.0 + np.trace(R, axis1=1, axis2=2), 0.0))
+    w = np.maximum(w, 1e-12)
+    return np.stack([(R[:, 2, 1] - R[:, 1, 2]) / (4 * w),
+                     (R[:, 0, 2] - R[:, 2, 0]) / (4 * w),
+                     (R[:, 1, 0] - R[:, 0, 1]) / (4 * w), w], 1)
+
+
+def write_imu_gps_csv(path, n_fixes, seed, samples_per_fix=200):
+    """Write a seeded stand-in of the reference's imuAndGPSdata.csv in its
+    row format (tools/imu_gps_vio.py:load_imu_gps_csv) and the truth beside
+    it as `<path>.truth.npz` (positions, rotations, velocities at the fixes,
+    the biases of every sample); returns the truth's positions [n, 3].
+
+    The vehicle follows ConstantTwistScenario(VIO_OMEGA, VIO_VEL); the IMU
+    has gravity removed, as the file's has, and carries white noise of the
+    example's sigmas over sqrt(dt), a constant bias (VIO_BIAS0_SIGMAS) and a
+    random walk at the bias sigmas. A GPS fix, sigma 1 m per axis, follows
+    every `samples_per_fix` samples."""
+    rng = np.random.default_rng(seed)
+    dt = vio.DT
+    N = n_fixes * samples_per_fix
+    scen = scenario.ConstantTwistScenario(VIO_OMEGA, VIO_VEL)
+    acc_true = np.cross(VIO_OMEGA, VIO_VEL)
+    walk = np.cumsum(rng.normal(size=(N, 6)) * np.sqrt(dt) * np.r_[
+        np.full(3, VIO_BIAS_ACC_SIGMA), np.full(3, VIO_BIAS_GYRO_SIGMA)], 0)
+    bias = rng.normal(size=6) * VIO_BIAS0_SIGMAS + walk
+    imu = (np.r_[acc_true, VIO_OMEGA] + bias
+           + rng.normal(size=(N, 6)) / np.sqrt(dt) * np.r_[
+               np.full(3, VIO_ACC_SIGMA), np.full(3, VIO_GYRO_SIGMA)])
+    t_fix = (np.arange(n_fixes) + 1) * samples_per_fix * dt
+    nav_t = scen.nav_state(t_fix).numpy()
+    pos, rot, vel = nav_t[:, :, 3], nav_t[:, :, :3], nav_t[:, :, 4]
+    gps = pos + rng.normal(scale=VIO_GPS_SIGMA, size=pos.shape)
+    quat = _rot_to_quat(rot)
+    v0 = scen.nav_state(0.0).numpy()[:, 4]
+    fmt = "{:.17g}".format
+    with open(path, "w") as f:
+        f.write("i,0,0,0,0,0,0,1," + ",".join(map(fmt, v0)) + "\n")
+        for k in range(n_fixes):
+            rows = imu[k * samples_per_fix:(k + 1) * samples_per_fix]
+            f.write("".join("0," + ",".join(map(fmt, r)) + "\n"
+                            for r in rows))
+            f.write("1," + ",".join(map(fmt, np.r_[gps[k], quat[k]]))
+                    + "\n")
+    np.savez(f"{path}.truth.npz", positions=pos, rotations=rot,
+             velocities=vel, bias=bias)
+    return pos
+
+
 def _ate3(values, truth):
     return metrics.ate(values["se3"][:, :, 3].cpu().numpy(),
                        truth[:, :, 3])["rmse"]
@@ -1046,6 +1222,434 @@ def phase_file_3d(dev, tmp):
           f"{SPHERE_ATE_BOUND})")
 
 
+def _preint_inputs(lengths, dtype, dev, seed):
+    """accs, gyros [S, N, 3], dts [S, N], bias [S, 6] of IMU segments of the
+    given lengths (padded with dt = 0), turning at about 0.3 rad/s."""
+    rng = np.random.default_rng(seed)
+    segs = [np.concatenate([rng.normal(size=(n, 3)) + [0.0, 0.0, 9.81],
+                            0.3 * rng.normal(size=(n, 3))], 1)
+            for n in lengths]
+    accs, gyros, dts = pre.pad_segments(segs, vio.DT, device=dev,
+                                        dtype=dtype)
+    bias = torch.tensor(0.01 * rng.normal(size=(len(lengths), 6)),
+                        device=dev, dtype=dtype)
+    return accs, gyros, dts, bias
+
+
+def _preint_call(kind, inputs, covs, plain=False):
+    """One of the three scans, kernel or plain version, on `inputs`."""
+    accs, gyros, dts, bias = inputs
+    if kind == "tangent":
+        fn = preint_ops.preint_tangent_ref if plain else \
+            preint_ops.preint_tangent
+        return fn(accs, gyros, dts, bias, covs)
+    fn = preint_ops.preint_rotation_ref if plain else \
+        preint_ops.preint_rotation
+    if kind == "manifold":
+        return fn("manifold", gyros, dts, bias, accs=accs)
+    return fn("ahrs", gyros, dts, bias[:, 3:].contiguous(),
+              gyro_cov=covs[1].contiguous())
+
+
+def preint_bound(kind, S, N, itemsize):
+    """(bound_ms, bound_by, what) of one launch: the largest of the samples
+    read once (7 values each) and the outputs written once over the HBM
+    rate, the operations over the float64 rate, and N steps of the
+    dependent chain (CHAIN_CYCLES, a model); the chain's steps are
+    operations, so it is `bound_by` "operations" too."""
+    out = {"tangent": 145, "manifold": 15 + 6 * 15}[kind]
+    by_bytes = (7 * S * N + out * S) * itemsize / HBM_BYTES_PER_S * 1e3
+    flops = TANGENT_FLOPS if kind == "tangent" else ROTATION_FLOPS
+    by_ops = flops * S * N / FP64_FLOP_PER_S * 1e3
+    by_chain = N * CHAIN_CYCLES[kind] / CLOCK_HZ * 1e3
+    terms = {"bytes": by_bytes, "operations": by_ops,
+             "dependent chain": by_chain}
+    what = max(terms, key=terms.get)
+    return terms[what], ("bytes" if what == "bytes" else "operations"), (
+        f"bytes {by_bytes * 1e3:.2f} us, operations {by_ops * 1e3:.2f} us, "
+        f"dependent chain {by_chain * 1e3:.2f} us: {what}")
+
+
+def phase_preint(dev):
+    """The preintegration kernels against their plain versions on the card;
+    returns the records of preint_tangent and preint_rotation (float64, the
+    batch path's launch of 2000 segments of 200 samples) and
+    preint_rotation's launches through the public entry points."""
+    covs64 = torch.tensor(np.stack([0.01 * np.eye(3), 1e-4 * np.eye(3),
+                                    1e-8 * np.eye(3)]), device=dev)
+    cases = ((f"S={PREINT_S} x N={PREINT_N}", [PREINT_N] * PREINT_S, 0),
+             (f"ragged 1/37/{PREINT_N}", [1, 37, PREINT_N], 1))
+    for label, lengths, seed in cases:
+        in64 = _preint_inputs(lengths, torch.float64, dev, seed)
+        in32 = tuple(x.float() for x in in64)
+        for kind in ("tangent", "manifold", "ahrs"):
+            k64 = _preint_call(kind, in64, covs64)
+            p64 = _preint_call(kind, in64, covs64, plain=True)
+            k32 = _preint_call(kind, in32, covs64.float())
+            p32 = _preint_call(kind, in32, covs64.float(), plain=True)
+            torch.cuda.synchronize()
+            worst = []
+            for o, (a, b, c, d) in enumerate(zip(k64, p64, k32, p32)):
+                scale = b.abs().max().item()
+                e64 = (a - b).abs().max().item()
+                e32 = (c.double() - b).abs().max().item()
+                own = (d.double() - b).abs().max().item()
+                lim32 = max(4 * own, 1e-4 * scale)
+                if not (e64 <= 1e-10 * scale and e32 <= lim32):
+                    raise RuntimeError(
+                        f"[14] {kind} {label} output {o}: kernel float64 "
+                        f"{e64:.3e} (limit {1e-10 * scale:.3e}), float32 "
+                        f"{e32:.3e} (limit {lim32:.3e})")
+                worst.append((e64 / max(scale, 1e-300), e32 / lim32))
+            print(f"[14] {kind:8s} {label}: kernel == plain on the card, "
+                  f"float64 worst {max(w[0] for w in worst):.2e} of the "
+                  f"largest entry (limit 1e-10); float32 worst "
+                  f"{max(w[1] for w in worst):.2f} of its limit (4 x the "
+                  f"plain float32's own distance, floor 1e-4)")
+
+    # the manifold backend and AHRS through their entry points, counted
+    in64 = _preint_inputs([PREINT_N] * PREINT_S, torch.float64, dev, 0)
+    accs, gyros, dts, bias = in64
+    params = pre.PreintegrationParams.make_shared_u(device=dev)
+    preint_ops.preint_rotation.launches = 0
+    preint_ops.preint_tangent.launches = 0
+    pm = pre.integrate_manifold_batch(params, bias, accs, gyros, dts)
+    pa = pre.integrate_ahrs_batch(params.gyro_cov, bias[:, 3:], gyros, dts)
+    torch.cuda.synchronize()
+    rot_launches = preint_ops.preint_rotation.launches
+    print(f"[14] integrate_manifold_batch and integrate_ahrs_batch of "
+          f"{PREINT_S} segments: preint_rotation.launches = {rot_launches}, "
+          f"preint_tangent.launches = {preint_ops.preint_tangent.launches}; "
+          f"finite: {bool(torch.isfinite(pm.H_ba).all())}, "
+          f"{bool(torch.isfinite(pa.H_bw).all())}")
+    if rot_launches != 2 or not (torch.isfinite(pm.zeta).all()
+                                 and torch.isfinite(pa.theta).all()):
+        raise RuntimeError("[14] the manifold and AHRS entry points did not "
+                           "go through preint_rotation")
+
+    # times of the batch path's launch and of the stream's (one segment);
+    # kernels of milliseconds: CUDA events around the launches are the
+    # record, the profiler's figure per kernel event stands beside them (a
+    # pass after earlier ones in this process can record no event of a
+    # kernel launched through ctypes)
+    one = _preint_inputs([PREINT_N], torch.float64, dev, 2)
+    rows = {}
+    for kind in ("tangent", "manifold"):
+        for S, inputs in ((PREINT_S, in64), (1, one)):
+            def kernel():
+                return _preint_call(kind, inputs, covs64)
+            ms = _time_ms(kernel, 10 if S > 1 else 20)
+            p_ms, n_ev = device_ms_per_call(kernel, 10)
+            prof = (f"torch.profiler {p_ms / n_ev:.4f} ms per kernel event"
+                    if n_ev > 0 else "torch.profiler recorded no event")
+            if not ms > 0:
+                raise RuntimeError(f"[14] {kind}: {ms} ms per launch")
+            got = kernel()
+            _sync(dev)
+            t0 = time.perf_counter()
+            ref = _preint_call(kind, inputs, covs64, plain=True)
+            _sync(dev)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+            bound_ms, bound_by, what = preint_bound(kind, S, PREINT_N, 8)
+            print(f"[14] {kind} float64 {S} x {PREINT_N}: kernel {ms:.4f} "
+                  f"ms per launch (CUDA events; {prof}), "
+                  f"{1e3 * ms / PREINT_N:.2f} us per dependent step; plain "
+                  f"version {plain_ms:.1f} ms (host clock, one call); bound "
+                  f"{bound_ms * 1e3:.2f} us ({what}), {100 * bound_ms / ms:.2f}"
+                  f"% of the kernel's time; max |kernel - plain| {err:.2e}")
+            rows[kind, S] = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": None}
+    # each record is the launch of its kernel's main path: preint_tangent's
+    # the stream's one segment (phase 17), preint_rotation's the batch of
+    # phase 14's entry points; the other launch stands beside it
+    tangent = dict(rows["tangent", 1],
+                   batch_launch={"S": PREINT_S, **rows["tangent", PREINT_S]})
+    rotation = dict(rows["manifold", PREINT_S],
+                    one_segment={"S": 1, **rows["manifold", 1]})
+    return tangent, rotation, rot_launches
+
+
+def _vio_data(path, n_fixes, seed):
+    truth = write_imu_gps_csv(path, n_fixes, seed)
+    init, segs, gps = vio.load_imu_gps_csv(path)
+    pose0, vel0 = vio.initial_state(init)
+    return pose0, vel0, segs, gps, truth
+
+
+def _quiet(*_):
+    pass
+
+
+def phase_vio_parity(dev, tmp):
+    """The IMU + GPS paths at 20 fixes in float64, card against CPU."""
+    pose0, vel0, segs, gps, _ = _vio_data(f"{tmp}/vio_small.csv", VIO_SMALL,
+                                          11)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        rec = vio.run_batch(pose0, vel0, segs, gps, VIO_SMALL, device=d,
+                            dtype=torch.float64, say=_quiet)
+        isam, recs = vio.run_stream(pose0, vel0, segs, gps, VIO_SMALL,
+                                    device=d,
+                                    dtype=torch.float64, say=_quiet)
+        ups = [r for _, us in recs[:-1] for _, r in us] + recs[-1]
+        out[d.type] = (rec["result"], ups,
+                       {g: isam.estimate_array(g)
+                        for g in ("se3", "vel3", "imu_bias")}, isam.error())
+    (bc, uc, ec, errc), (bh, uh, eh, errh) = out["cuda"], out["cpu"]
+    rel = abs(bc.error - bh.error) / bh.error
+    rows_c = [u.relinearized_rows for u in uc]
+    rows_h = [u.relinearized_rows for u in uh]
+    gap = max(np.abs(ec[g] - eh[g]).max() for g in ec)
+    cg_gap = max(abs(a.cg_iterations - b.cg_iterations)
+                 for a, b in zip(uc, uh))
+    print(f"[15] {VIO_SMALL} fixes, float64: batch LM error "
+          f"{bc.error:.10g} on the card, {bh.error:.10g} on the CPU (rel "
+          f"{rel:.2e}, limit 1e-9), {bc.iterations} and {bh.iterations} "
+          f"iterations")
+    print(f"[15] ISAM2 stream, {len(uc)} updates: relinearized rows equal: "
+          f"{rows_c == rows_h}; estimates max |card - CPU| {gap:.2e} (limit "
+          f"1e-8); CG iterations within {cg_gap}; error {errc:.10g} / "
+          f"{errh:.10g}")
+    if not rel <= 1e-9:
+        raise RuntimeError(f"[15] batch error card {bc.error} CPU {bh.error}")
+    if rows_c != rows_h or not gap <= 1e-8:
+        raise RuntimeError(f"[15] the stream left the CPU's: rows "
+                           f"{rows_c} vs {rows_h}, estimates {gap}")
+
+
+def phase_vio_batch(dev, tmp):
+    """The batch path at 2000 fixes (400 000 samples) in float64, LM from
+    the GPS-aided start under the gates; the JAX example's dead-reckoned
+    start is printed, not run: over 33 minutes it drifts by the double
+    integral of the accelerometer bias's random walk."""
+    t0 = time.perf_counter()
+    path = f"{tmp}/vio_{VIO_BATCH_FIXES}.csv"
+    truth = write_imu_gps_csv(path, VIO_BATCH_FIXES, 12)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    init, segs, gps = vio.load_imu_gps_csv(path)
+    t_parse = time.perf_counter() - t0
+    pose0, vel0 = vio.initial_state(init)
+    params = vio.imu_params(device=dev)
+    poses, _ = vio.dead_reckon(vio.integrate_segments(
+        params, segs, np.zeros(6), device=dev, dtype=torch.float64), params,
+        pose0, vel0)
+    drift = vio.position_errors(poses[1:, :, 3].cpu().numpy(), gps,
+                                VIO_BATCH_FIXES, truth)
+    print(f"[16] the dead-reckoned start (the JAX example's): position "
+          f"error against the truth mean {drift.mean():.1f} m, max "
+          f"{drift.max():.1f} m")
+    preint_ops.preint_tangent.launches = 0
+    rec = vio.run_batch(pose0, vel0, segs, gps, VIO_BATCH_FIXES, device=dev,
+                        dtype=torch.float64, solver="schur", max_part=128,
+                        start="gps", say=lambda s: print(f"[16] {s}"))
+    launches = preint_ops.preint_tangent.launches
+    res = rec["result"]
+    err = vio.position_errors(res.values["se3"][1:, :, 3].cpu().numpy(), gps,
+                              VIO_BATCH_FIXES, truth)
+    sec = rec["seconds"]
+    print(f"[16] {VIO_BATCH_FIXES} fixes, {sum(len(s) for s in segs)} "
+          f"samples, GPS-aided start: seconds per step: write {t_write:.2f}, "
+          f"CSV parse {t_parse:.2f}, preintegration {sec['preintegrate']:.4f} "
+          f"({launches} preint_tangent launch), initialization "
+          f"{sec['init']:.3f}, graph {sec['build']:.2f}, plan "
+          f"{sec['plan']:.2f}, LM {sec['lm']:.2f}; error "
+          f"{rec['initial']:.6g} -> {res.error:.10g} in {res.iterations} "
+          f"iterations (converged {res.converged}); position error against "
+          f"the truth mean {err.mean():.4f} m, max {err.max():.4f} m")
+    if not (np.isfinite(res.error) and res.error < rec["initial"]):
+        raise RuntimeError(f"gate: [16] error {rec['initial']} -> "
+                           f"{res.error}")
+    if not err.mean() < 1.0:
+        raise RuntimeError(f"gate: [16] mean position error {err.mean()}")
+    if launches != 1:
+        raise RuntimeError(f"[16] {launches} preint_tangent launches, not 1")
+
+
+def phase_vio_stream(dev, tmp):
+    """The stream at VIO_STREAM_FIXES fixes with the example's settings and
+    the preconditioner rebuilt every update, under its gates; returns
+    preint_tangent's launches in the stream."""
+    pose0, vel0, segs, gps, truth = _vio_data(f"{tmp}/vio_stream.csv",
+                                              VIO_STREAM_FIXES, 13)
+    n = VIO_STREAM_FIXES
+    batch = vio.run_batch(pose0, vel0, segs, gps, n, device=dev,
+                          dtype=torch.float64, solver="schur", start="gps",
+                          say=_quiet)
+    optimum = batch["result"].error
+    preint_ops.preint_tangent.launches = 0
+    chain_factorize.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    isam, recs = vio.run_stream(pose0, vel0, segs, gps, n,
+                                refresh=VIO_STREAM_REFRESH, device=dev,
+                                dtype=torch.float64, say=_quiet)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = preint_ops.preint_tangent.launches
+    chain_launches = chain_factorize.launches
+    fix_s = [s for s, _ in recs[:-1]]
+    ups = [u for _, us in recs[:-1] for u in us]
+    err = isam.error()
+    pos = vio.position_errors(isam.estimate_array("se3")[1:, :, 3], gps, n,
+                              truth)
+    cap = isam._cap_n["se3"]
+    d = sum(manifolds.get(g).dim
+            for g in vio.SUPERCHAIN.split(":")[1].split("+"))
+    print(f"[17] {n} fixes, {sum(len(s) for s in segs[:n])} samples, "
+          f"float64, {vio.SUPERCHAIN}, "
+          f"CG 500 at 1e-10, 3 updates a fix, preconditioner rebuilt every "
+          f"{VIO_STREAM_REFRESH} update(s): {wall:.1f} s, "
+          f"{1e3 * np.mean(fix_s):.2f} ms per fix (median "
+          f"{1e3 * np.median(fix_s):.2f}), "
+          f"{1e3 * np.mean([s for s, _ in ups]):.2f}"
+          f" ms per update, CG iterations per update mean "
+          f"{np.mean([r.cg_iterations for _, r in ups]):.1f} max "
+          f"{max(r.cg_iterations for _, r in ups)}, relinearized rows "
+          f"mean {np.mean([r.relinearized_rows for _, r in ups]):.1f}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    print(f"[17] final error {err:.10g}, float64 batch optimum of the same "
+          f"graph {optimum:.10g} (ratio {err / optimum:.6f}); position error "
+          f"against the truth mean {pos.mean():.4f} m, max {pos.max():.4f} "
+          f"m; preint_tangent.launches = {launches} ({n} fixes); "
+          f"chain_factorize.launches = {chain_launches} at d = {d}, "
+          f"capacity {cap}")
+    if not (np.isfinite(err) and err <= 1.05 * optimum):
+        raise RuntimeError(f"gate: [17] error {err} above 1.05 x {optimum}")
+    if not pos.mean() < 1.0:
+        raise RuntimeError(f"gate: [17] mean position error {pos.mean()}")
+    if launches != n:
+        raise RuntimeError(f"gate: [17] preint_tangent launched {launches} "
+                           f"times for {n} fixes")
+    if not (chain_launches > 0 and d == 15):
+        raise RuntimeError(f"gate: [17] chain_factorize launched "
+                           f"{chain_launches} times at d = {d}")
+    return launches, cap, d
+
+
+def chain_time_stream(dev, cap, d):
+    """chain_factorize's time at phase 17's capacity and block size, taken
+    once phase 18's second process has ended."""
+    Dm, Om = chain.chain_prepare(*_spd_chain(d, cap, dev, 17), cap, CHAIN_LAM)
+    c_ms = _time_ms(lambda: chain_factorize(Dm, Om), 20)
+    print(f"[17] chain_factorize float64 cap {cap} d={d}: {c_ms:.4f} ms per "
+          f"call (CUDA events, 20 calls), {1e6 * c_ms / cap:.0f} ns per "
+          f"block")
+
+
+def smart_stream_child(out_path):
+    """Phase 18's full-size stream in a second process: tools/
+    isam2_smart_factor.py's run() on the card, its record to OUT as JSON.
+    One CPU thread: the stream's host work is one Python thread, and the
+    parity process runs beside it."""
+    torch.set_num_threads(1)
+    dev = config.device("cuda")
+    lines = []
+    big = smart_tool.run(SMART_POSES, SMART_LANDMARKS,
+                         refine_iters=SMART_REFINE_ITERS, device=dev,
+                         say=lines.append)
+    truth = smart_tool.make_scene(SMART_POSES, SMART_LANDMARKS, 4,
+                                  0.002)[0][:, :, 3]
+    res = big["batch"]
+    rec = {"lines": lines, "error": big["isam"].error(),
+           "batch": res.error, "batch_iterations": res.iterations,
+           "n_smart": big["n_smart"], "pos_err": big["pos_err"],
+           "dpos": big["dpos"], "update_ms": [1e3 * t
+                                              for t in big["update_s"]],
+           "ate": metrics.ate(big["isam"].estimate_array("se3")[:, :, 3],
+                              truth)["rmse"],
+           "batch_ate": metrics.ate(
+               res.values["se3"][:, :, 3].cpu().numpy(), truth)["rmse"]}
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def parity_child(tmp):
+    """Phases 9 and 15, card against CPU, in a third process: they time
+    nothing. Four CPU threads for their CPU sides, the rest of the host
+    for the other two processes."""
+    torch.set_num_threads(4)
+    dev = config.device("cuda")
+    data, stream_end = phase_isam_parity(dev)
+    phase_checkpoint(dev, data, stream_end, tmp)
+    phase_vio_parity(dev, tmp)
+
+
+CHILDREN = {"smart": "phase 18's full-size stream",
+            "parity": "phases 9 and 15"}
+
+
+def start_child(kind, tmp):
+    """Start `chip_smoke.py --child KIND TMP` (smart_stream_child or
+    parity_child); returns (kind, process, log path)."""
+    log = f"{tmp}/{kind}.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", kind, tmp],
+            stdout=f, stderr=subprocess.STDOUT)
+    print(f"[children] {CHILDREN[kind]} started in process {proc.pid}")
+    return kind, proc, log
+
+
+def join_child(child):
+    """Wait for a child; print its log (the parity phases' lines) or, if
+    it failed, the end of it; raise if it failed."""
+    kind, proc, log = child
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=CHILD_TIMEOUT)
+    print(f"[children] waited {time.perf_counter() - t0:.1f} s for "
+          f"{CHILDREN[kind]} (exit code {rc})")
+    with open(log) as f:
+        text = f.read()
+    if kind == "parity" or rc != 0:
+        print(text if rc == 0 else text[-4000:], end="")
+    if rc != 0:
+        raise RuntimeError(f"the process of {CHILDREN[kind]} exited with "
+                           f"{rc}")
+
+
+def phase_smart(dev, child, tmp):
+    """Smart factors streamed into ISAM2: the example's scene card against
+    CPU (CG to convergence), then the full-size stream's record from its
+    process `child` (start_child("smart", tmp)) under its gates."""
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        out[d.type] = smart_tool.run(device=d, cg_maxiter=300, cg_tol=1e-10,
+                                     say=_quiet)
+    c, h = out["cuda"], out["cpu"]
+    gap = np.abs(c["isam"].estimate_array("se3")
+                 - h["isam"].estimate_array("se3")).max()
+    print(f"[18] 12 poses, 30 landmarks, T = 4, float64, CG to 1e-10: "
+          f"estimates max |card - CPU| {gap:.2e} (limit 1e-8); errors "
+          f"{c['isam'].error():.10g} / {h['isam'].error():.10g}; batch "
+          f"{c['batch'].error:.10g} / {h['batch'].error:.10g}")
+    if not gap <= 1e-8:
+        raise RuntimeError(f"[18] smart stream card vs CPU {gap}")
+    join_child(child)
+    path = f"{tmp}/smart_stream.json"
+    with open(path) as f:
+        big = json.load(f)
+    for line in big["lines"]:
+        print(f"[18] {line}")
+    err, opt, ms = big["error"], big["batch"], np.array(big["update_ms"])
+    print(f"[18] {SMART_POSES} poses, {big['n_smart']} smart factors, "
+          f"{SMART_REFINE_ITERS} Gauss-Newton steps a triangulation, the "
+          f"example's engine defaults: {ms.mean():.2f} ms per update "
+          f"(median {np.median(ms):.2f}, {len(ms)} updates, beside phases "
+          f"9 and 15-17); error {err:.8g} vs batch {opt:.8g} "
+          f"({big['batch_iterations']} LM iterations; ratio {err / opt:.5f}, "
+          f"limit 1.05); aligned ATE "
+          f"rmse {big['ate']:.4f} m (limit {SMART_ATE_BOUND}; the batch "
+          f"optimum's {big['batch_ate']:.4f} m); mean position error "
+          f"{big['pos_err']:.4f} m unaligned")
+    if not (np.isfinite(err) and err <= 1.05 * opt):
+        raise RuntimeError(f"gate: [18] error {err} above 1.05 x {opt}")
+    if not big["ate"] < SMART_ATE_BOUND:
+        raise RuntimeError(f"gate: [18] aligned ATE rmse {big['ate']}")
+
+
 def phase_breadth(dev):
     """Every name residual_by_name knows: 4096 seeded factors linearized on
     the card and on the CPU in float64."""
@@ -1094,6 +1698,11 @@ def main():
     print(card)
     print(f"[1] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+
+    def clock(after):
+        print(f"[clock] {time.perf_counter() - t0:.1f} s at the end of "
+              f"phase {after}")
     phase_build()
     record = phase_kernel(dev)
     phase_parity(dev)
@@ -1102,25 +1711,68 @@ def main():
     phase_se3_parity(dev)
     batch_optimum = phase_pose_main(dev)
     chain_record = phase_chain(dev)
-    data, stream_end = phase_isam_parity(dev)
+    clock(8)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_checkpoint(dev, data, stream_end, tmp)
         chain_launches = phase_isam_main(dev, batch_optimum)
+        clock(10)
         phase_file_2d(dev, batch_optimum, tmp)
         phase_file_3d(dev, tmp)
     phase_breadth(dev)
+    clock(13)
+    tangent_record, rotation_record, rotation_launches = phase_preint(dev)
+    clock(14)
+    # the kernels are timed: phases 9 and 15 (parity, untimed) and phase
+    # 18's full-size stream run in two more processes beside 16 and 17
+    with tempfile.TemporaryDirectory() as tmp:
+        children = [start_child("smart", tmp), start_child("parity", tmp)]
+        try:
+            phase_vio_batch(dev, tmp)
+            clock(16)
+            tangent_launches, cap, d = phase_vio_stream(dev, tmp)
+            clock(17)
+            phase_smart(dev, children[0], tmp)
+            clock(18)
+            join_child(children[1])
+            clock("9 and 15")
+        finally:
+            for _, proc, _ in children:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    chain_time_stream(dev, cap, d)
     print(card)
     print(json.dumps({"kernels": [
         {"name": "landmark_block_solve", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-         "launches": launches, **record},
+         "launches": launches, **record,
+         "launches_from": "phase 5, the timed BA LM run"},
         {"name": "chain_factorize", "route": "cuda",
          "source": CHAIN_SOURCE, "replaces": CHAIN_REPLACES,
-         "launches": chain_launches, **chain_record}]}))
+         "launches": chain_launches, **chain_record,
+         "launches_from": "phase 10, the 10000-pose ISAM2 stream"},
+        {"name": "preint_tangent", "route": "cuda",
+         "source": PREINT_T_SOURCE, "replaces": PREINT_T_REPLACES,
+         "launches": tangent_launches, **tangent_record,
+         "launches_from": f"phase 17, the {VIO_STREAM_FIXES}-fix IMU + GPS "
+                          f"ISAM2 stream, a segment a launch; the times are "
+                          f"of that launch (phase 14), batch_launch's of "
+                          f"phase 14's 2000 segments, phase 16's shape"},
+        {"name": "preint_rotation", "route": "cuda",
+         "source": PREINT_R_SOURCE, "replaces": PREINT_R_REPLACES,
+         "launches": rotation_launches, **rotation_record,
+         "launches_from": "phase 14: integrate_manifold_batch and "
+                          "integrate_ahrs_batch; no path of the tools runs "
+                          "the manifold backend or AHRS"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--child"]:
+        if sys.argv[2] == "smart":
+            smart_stream_child(f"{sys.argv[3]}/smart_stream.json")
+        else:
+            parity_child(sys.argv[3])
+    else:
+        main()

@@ -20,8 +20,9 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "landmark_block_solve.cu",
-           _PKG / "csrc" / "chain_factorize.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "landmark_block_solve.cu", "chain_factorize.cu", "preint_tangent.cu",
+    "preint_rotation.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 # -fmad=false: see csrc/landmark_block_solve.cu, "Arithmetic order"; it holds
 # for every source, and csrc/chain_factorize.cu calls fma() where it wants one.
@@ -37,6 +38,13 @@ _ENTRY_POINTS = {
     # D, O, Uinv, cap, d, stream (-1: a block size that is not built)
     "chain_factorize_f32": [_VOID_P] * 3 + [_I64, _INT, _VOID_P],
     "chain_factorize_f64": [_VOID_P] * 3 + [_I64, _INT, _VOID_P],
+    # accs, gyros, dts, bias, covs, zeta, H, cov, dT, S, N, stream
+    "preint_tangent_f32": [_VOID_P] * 9 + [_I64, _I64, _VOID_P],
+    "preint_tangent_f64": [_VOID_P] * 9 + [_I64, _I64, _VOID_P],
+    # mode, accs, gyros, dts, bias, gyro_cov, R, dR, p, v, dp, dv, cov, S, N,
+    # stream (-1: a mode that does not exist)
+    "preint_rotation_f32": [_INT] + [_VOID_P] * 12 + [_I64, _I64, _VOID_P],
+    "preint_rotation_f64": [_INT] + [_VOID_P] * 12 + [_I64, _I64, _VOID_P],
 }
 
 

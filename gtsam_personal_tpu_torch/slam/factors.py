@@ -27,6 +27,7 @@ import torch
 from gtsam_personal_tpu_torch.core import manifolds
 from gtsam_personal_tpu_torch.geometry import (cameras, extra, fundamental,
                                                se2, se3, so2, so3)
+from gtsam_personal_tpu_torch.navigation import factors as nav
 from gtsam_personal_tpu_torch.slam import unstable
 
 _BETWEEN = {"se2": se2.between, "se3": se3.between, "so3": so3.between,
@@ -411,7 +412,7 @@ _NAMED = {"bearing_range_2d": bearing_range_2d_residual,
               essential_matrix_constraint_residual,
           "projection_ppp": projection_ppp_residual,
           "local_oriented_plane3": local_oriented_plane3_residual,
-          **unstable.NAMED}
+          **unstable.NAMED, **nav.NAMED}
 
 # factories whose closure holds only the group: "<prefix><group>"; the
 # longer prefixes first, so that "between_sensor_se3" is not read as
@@ -442,7 +443,9 @@ def residual_by_name(name: str):
       `between_em_<g>` (slam/unstable.py) for g in se2, se3;
     - one of the module-level residuals of this module and of
       slam/unstable.py, by its function name without `_residual`
-      (`stereo`, `projection`, `toa`, ...).
+      (`stereo`, `projection`, `toa`, ...);
+    - a navigation or dynamics residual (navigation/factors.py:NAMED:
+      `imu`, `gps`, `ahrs`, `velocity_constraint_trapezoidal`, ...).
     An `_anti` suffix, which `FactorBatch.negated` adds, is ignored.
 
     `partial_prior_<group>` and `bounding_constraint` raise ValueError: the

@@ -23,6 +23,7 @@ import torch
 from gtsam_personal_tpu_torch.core import manifolds
 from gtsam_personal_tpu_torch.geometry import (extra, fundamental, se2, se3,
                                                so3)
+from gtsam_personal_tpu_torch.navigation import navstate, preintegration as pre
 from gtsam_personal_tpu_torch.slam import factors as F
 
 
@@ -341,7 +342,100 @@ def _spec(name, D):
         if name == "toa":
             return ("event",), [event], dict(meas, sensor=sensor)
         return ("event", "point3"), [event, sensor], meas
-    raise KeyError(name)
+    nav = _nav_spec(name, D)
+    if nav is None:
+        raise KeyError(name)
+    return nav
+
+
+def _imu_case(D, combined):
+    """A PIM's arrays and (pose_i, vel_i) with (pose_j, vel_j) near the
+    state that the PIM predicts from them."""
+    K = D.K
+    pose_i, vel_i = D.pose3(), D.normal(3, scale=2.0)
+    bias_hat = D.normal(6, scale=0.01)
+    bias = bias_hat + D.normal(6, scale=0.01)
+    meas = {"zeta": np.concatenate([D.normal(3, scale=0.2), D.normal(3),
+                                    D.normal(3)], 1),
+            "H_ba": D.normal(9, 3, scale=0.1),
+            "H_bw": D.normal(9, 3, scale=0.1), "bias_hat": bias_hat,
+            "deltaT": D.uniform(0.1, 1.0),
+            "gravity": np.tile([0.0, 0.0, -9.81], (K, 1))}
+    pim = pre.PIM(_t(meas["zeta"]), _t(meas["H_ba"]), _t(meas["H_bw"]),
+                  None, _t(bias_hat), _t(meas["deltaT"]))
+    pred = pre.predict(pim, pre.PreintegrationParams(
+        _t(meas["gravity"]), None, None, None),
+        navstate.from_pose_vel(_t(pose_i), _t(vel_i)), _t(bias))
+    pose_j = D.near("se3", _n(navstate.pose_of(pred)))
+    vel_j = _n(navstate.velocity(pred)) + D.away(3, 0.05)
+    groups = ("se3", "vel3", "se3", "vel3", "imu_bias")
+    points = [pose_i, vel_i, pose_j, vel_j, bias]
+    if combined:
+        groups += ("imu_bias",)
+        points.append(bias + D.normal(6, scale=0.01))
+    return groups, points, meas
+
+
+def _nav_spec(name, D):
+    """(groups, points, meas) of a navigation or dynamics residual, or
+    None."""
+    if name in ("imu", "combined_imu"):
+        return _imu_case(D, name == "combined_imu")
+    if name == "ahrs":
+        Ri = D.rot()
+        theta, H = D.normal(3, scale=0.2), D.normal(3, 3, scale=0.3)
+        bias_hat = D.normal(3, scale=0.01)
+        bias = bias_hat + D.normal(3, scale=0.01)
+        corr = theta + np.einsum("kij,kj->ki", H, bias - bias_hat)
+        Rj = D.near("so3", _n(_t(Ri) @ so3.expmap(_t(corr))))
+        return ("so3", "so3", "r3"), [Ri, Rj, bias], {
+            "theta": theta, "H_bw": H, "bias_hat": bias_hat}
+    if name in ("gps", "biased_gps"):
+        if name == "gps":
+            return ("se3",), [D.pose3()], {"measured": D.normal(3)}
+        return ("se3", "r3"), [D.pose3(), D.normal(3)], {
+            "measured": D.normal(3)}
+    if name == "attitude":
+        pose, bRef = D.pose3(), D.unit()
+        return ("se3",), [pose], {"bRef": bRef, "nZ": D.unit(
+            np.einsum("kij,kj->ki", pose[:, :, :3], bRef))}
+    if name == "constant_velocity":
+        return ("vel3", "vel3"), [D.normal(3), D.normal(3)], {}
+    if name == "barometric":
+        return ("se3", "r1"), [D.pose3(), D.normal(1)], {
+            "height": D.normal(1)[:, 0]}
+    if name in ("mag_rot3", "mag_pose"):
+        x = D.rot() if name == "mag_rot3" else D.pose3()
+        return ("so3",) if name == "mag_rot3" else ("se3",), [x], {
+            "nM": D.normal(3, scale=20.0), "bias": D.normal(3),
+            "measured": D.normal(3, scale=20.0)}
+    if name == "mag_field_bias":
+        return ("r3", "r3"), [D.normal(3, scale=20.0), D.normal(3)], {
+            "bRn": D.rot(), "measured": D.normal(3, scale=20.0)}
+    if name == "mag_scale_dir_bias":
+        return ("r1", "unit3", "r3"), [D.uniform(0.5, 2.0, 1), D.unit(),
+                                       D.normal(3)], {
+            "bRn": D.rot(), "measured": D.normal(3)}
+    if name == "gauss_markov":
+        return ("r3", "r3"), [D.normal(3), D.normal(3)], {
+            "dt": D.uniform(0.1, 1.0), "tau": D.uniform(1.0, 10.0, 3)}
+    if name.startswith("velocity_constraint_"):
+        return ("se3", "vel3", "se3", "vel3"), [
+            D.pose3(), D.normal(3), D.pose3(), D.normal(3)], {
+            "dt": D.uniform(0.1, 1.0)}
+    scalars = {"h": D.uniform(0.01, 0.1), "m": D.uniform(0.5, 2.0),
+               "r": D.uniform(0.5, 2.0), "g": D.uniform(9.0, 10.0),
+               "alpha": D.uniform(0.0, 1.0)}
+    keys = {"velocity_constraint3": (), "pendulum1": ("h",),
+            "pendulum2": ("h", "g", "r"),
+            "pendulum_pk": ("h", "m", "r", "g", "alpha"),
+            "pendulum_pk1": ("h", "m", "r", "g", "alpha")}.get(name)
+    if keys is None:
+        return None
+    meas = {k: scalars[k] for k in keys}
+    if name == "velocity_constraint3":
+        meas["dt"] = D.uniform(0.1, 1.0)
+    return ("r1", "r1", "r1"), [D.normal(1), D.normal(1), D.normal(1)], meas
 
 
 def sample(name: str, K: int, seed: int = 0):

@@ -96,7 +96,19 @@ def test_port_imports_no_jax():
             "gtsam_personal_tpu_torch.geometry.fundamental",
             "gtsam_personal_tpu_torch.tools.pose_graph_g2o",
             "gtsam_personal_tpu_torch.tools.factor_samples",
-            "gtsam_personal_tpu_torch.utils.serialization"} <= set(mods)
+            "gtsam_personal_tpu_torch.utils.serialization",
+            "gtsam_personal_tpu_torch.navigation.navstate",
+            "gtsam_personal_tpu_torch.navigation.preintegration",
+            "gtsam_personal_tpu_torch.navigation.factors",
+            "gtsam_personal_tpu_torch.navigation.scenario",
+            "gtsam_personal_tpu_torch.navigation.geodetic",
+            "gtsam_personal_tpu_torch.navigation.dynamics",
+            "gtsam_personal_tpu_torch.ops.preintegration",
+            "gtsam_personal_tpu_torch.geometry.triangulation",
+            "gtsam_personal_tpu_torch.sfm.smart",
+            "gtsam_personal_tpu_torch.tools.imu_gps_vio",
+            "gtsam_personal_tpu_torch.tools.imu_factors",
+            "gtsam_personal_tpu_torch.tools.isam2_smart_factor"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

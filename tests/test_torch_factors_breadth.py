@@ -18,11 +18,16 @@ from gtsam_personal_tpu.core import graph as jgraph, manifolds as jman
 from gtsam_personal_tpu.geometry import extra as _jextra  # noqa: F401
 from gtsam_personal_tpu.geometry import fundamental as _jfund  # noqa: F401
 from gtsam_personal_tpu.linear import linearize as jlin, noise as jnoise
+from gtsam_personal_tpu.navigation import (dynamics as JD, factors as JNF,
+                                           preintegration as JPRE)
 from gtsam_personal_tpu.slam import factors as JF, unstable as JU
 from gtsam_personal_tpu_torch.core.graph import FactorBatch
 from gtsam_personal_tpu_torch.core.values import Values
 from gtsam_personal_tpu_torch.linear.linearize import linearize_batch
 from gtsam_personal_tpu_torch.linear.noise import NoiseModel
+from gtsam_personal_tpu_torch.navigation import (dynamics as DYN,
+                                                  factors as NAV,
+                                                  preintegration as PRE)
 from gtsam_personal_tpu_torch.slam import factors as F, unstable as U
 from gtsam_personal_tpu_torch.tools import factor_samples
 
@@ -45,7 +50,11 @@ def jax_residual(name):
         g = name.rsplit("_", 1)[1]
         return JF.make_reference_frame_residual(
             "point3" if g == "se3" else "point2", g)
-    mod = JU if hasattr(JU, name + "_residual") else JF
+    if name.startswith("velocity_constraint_"):
+        return JD.make_velocity_constraint_residual(
+            name[len("velocity_constraint_"):])
+    mod = next(m for m in (JU, JNF, JD, JPRE, JF)
+               if hasattr(m, name + "_residual"))
     return getattr(mod, name + "_residual")
 
 
@@ -135,14 +144,16 @@ def test_factories_that_hold_more_than_groups(case):
 
 
 def test_names_cover_both_modules():
-    """Every module-level residual of the two JAX modules has a name here,
-    and the names resolve to functions of the port's modules."""
+    """Every module-level residual of the JAX modules (slam factors,
+    unstable, navigation factors, dynamics, AHRS) has a name here, and the
+    names resolve to functions of the port's modules."""
     names = set(F.residual_names())
-    for mod in (JF, JU):
+    for mod in (JF, JU, JNF, JD, JPRE):
         for attr in dir(mod):
             if attr.endswith("_residual") and not attr.startswith("make_"):
                 assert attr[:-len("_residual")] in names, attr
+    port = {m.__name__ for m in (F, U, NAV, DYN, PRE)}
     for name in names:
         fn = F.residual_by_name(name)
-        assert fn.__module__ in (F.__name__, U.__name__), (name, fn)
+        assert fn.__module__ in port, (name, fn)
 
