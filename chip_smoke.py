@@ -44,9 +44,12 @@ processes start or after they end:
      kernel against its plain version (a Python loop) on blocks harvested
      from linearized graphs, d = 3 (a 256-pose Manhattan world) and d = 6
      (a 256-pose SE(3) chain) at capacity 256, d = 4 and 15 on seeded SPD
-     chains at capacity 64, in float64 (1e-10 of the largest entry) and
-     float32 (1e-3), and d = 3 at full length (capacity 16384, the 10000
-     poses of phase 7's graph); then factorize + chain_apply in float32
+     chains at capacity 64, d = 4 at capacity 256 (the kernel's ring of
+     tiles wrapped, as d = 3, 6 and 15 wrap above), every d at capacity
+     37 (a ragged last tile of the ring), in float64 (1e-10 of the
+     largest entry) and float32 (1e-3), and d = 3 at full length
+     (capacity 16384, the 10000 poses of phase 7's graph); then
+     factorize + chain_apply in float32
      against float64 at that length (relative error of the applied gradient
      below 1e-3: what a TF32 product in the chain would break); device time
      of the kernel at capacity 16384, d = 3 and 6 (CUDA events around 20
@@ -211,6 +214,13 @@ CHAIN_LAM = 1e-6            # ISAM2Params.lam
 # inverts by Gauss-Jordan without pivoting and with fused multiply-adds,
 # torch.linalg.inv by pivoted LU, and the difference compounds along the chain
 CHAIN_RTOL = {torch.float64: 1e-10, torch.float32: 1e-3}
+# the dependent chain of one block of chain_factorize, a model (see
+# chain_bound), from the latencies that tools/kernel_probes.py measured on
+# the H100, in cycles at CLOCK_HZ, by item size in bytes: (FMA, reciprocal),
+# the reciprocal as the kernel takes it, rcp.approx and one Newton step (2
+# FMAs) in float32, two (4 FMAs) in float64; the probe's "rcp.approx + fma"
+# is 23.2 and 27.1 cycles, its fma 4.46 and 8.82
+CHAIN_LATENCY = {4: (4.46, 23.2 + 4.46), 8: (8.82, 27.1 + 3 * 8.82)}
 # phase 10 updates after every measurement from this pose on (the last 970
 # or so of the 18088 measurements), and every ISAM_UPDATE_EVERY measurements
 # before it: at about 0.1 s an update, more would not fit the script's time
@@ -243,13 +253,12 @@ FP64_FLOP_PER_S = 67e12
 # about 250, each of 6 tangents about 300
 TANGENT_FLOPS, ROTATION_FLOPS = 1938, 2050
 # the dependent chain of one sample, in cycles at the card's 1.98 GHz boost
-# clock: float64 FMAs take 8 cycles, a division or a square root about 40
-# (the model of chain_factorize's row in PERF.md). preint_tangent: theta+
-# needs |theta|^2 (3 FMAs), a square root and a division, sin and cos (an
-# 8-term polynomial) and Jl^-1 w dt (3 FMAs and an add): 15 x 8 + 2 x 40 =
-# 200; the covariance's chain (10 FMAs through A cov and (A cov) A^T) is
-# shorter and runs beside it. preint_rotation: R+ = R Exp(w dt) and its
-# tangents, 4 FMAs = 32
+# clock: float64 FMAs take 8 cycles, a division or a square root about 40.
+# preint_tangent: theta+ needs |theta|^2 (3 FMAs), a square root and a
+# division, sin and cos (an 8-term polynomial) and Jl^-1 w dt (3 FMAs and
+# an add): 15 x 8 + 2 x 40 = 200; the covariance's chain (10 FMAs through
+# A cov and (A cov) A^T) is shorter and runs beside it. preint_rotation:
+# R+ = R Exp(w dt) and its tangents, 4 FMAs = 32
 CHAIN_CYCLES = {"tangent": 200, "manifold": 32}
 CLOCK_HZ = 1.98e9
 # phase 17 streams the first 500 fixes (100 000 samples, 8 minutes of
@@ -661,15 +670,30 @@ def _pad(a, cap):
 
 
 def chain_bound(cap, d, itemsize):
-    """(bound_ms, bound_by) of one chain factorization: the larger of its
-    bytes (D and O read, Uinv written, each once) over the HBM rate and its
+    """(bound_ms, bound_by, what) of one chain factorization: the largest of
+    its bytes (D and O read, Uinv written, each once) over the HBM rate, its
     operations (per block two d^3 products and a d^3 inverse, 2 flop each)
-    over the float32 rate. Neither is what limits the kernel: see the
-    dependent-chain figure that phase 8 prints."""
+    over the float32 rate, and cap steps of the dependent chain, a model
+    in CHAIN_LATENCY's cycles: T = Uinv O and A = D - O^T T are d FMAs deep
+    each; for d <= 4 the adjugate then takes a cofactor (2 deep), the
+    determinant (3 deep at d = 3, 6 at d = 4), one reciprocal and the
+    scaling multiply; for d > 4 elimination takes d pivots of a reciprocal
+    and an FMA. The chain's steps are operations, so it is `bound_by`
+    "operations" too."""
     by_bytes = 3 * cap * d * d * itemsize / HBM_BYTES_PER_S * 1e3
     by_ops = 6 * d ** 3 * cap / FP32_FLOP_PER_S * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
-        "operations"
+    fma, rcp = CHAIN_LATENCY[itemsize]
+    if d <= 4:
+        step = (2 * d + 2 + {3: 3, 4: 6}[d] + 1) * fma + rcp
+    else:
+        step = 2 * d * fma + d * (rcp + fma)
+    by_chain = cap * step / CLOCK_HZ * 1e3
+    terms = {"bytes": by_bytes, "operations": by_ops,
+             "dependent-chain model": by_chain}
+    what = max(terms, key=terms.get)
+    return terms[what], ("bytes" if what == "bytes" else "operations"), (
+        f"bytes {by_bytes * 1e3:.2f} us, operations {by_ops * 1e3:.2f} us, "
+        f"dependent-chain model {by_chain * 1e3:.2f} us: {what}")
 
 
 def phase_chain(dev):
@@ -706,8 +730,14 @@ def phase_chain(dev):
         check("d=6, 256 SE(3) poses, cap 256", D6, O6, 256, dtype)
         check("d=4, seeded SPD chain, cap 64, 37 active",
               *_spd_chain(4, 64, dev, 4), 37, dtype)
+        # 8 tiles: the kernel's ring of 4 wraps twice
+        check("d=4, seeded SPD chain, cap 256, all active",
+              *_spd_chain(4, 256, dev, 4), 256, dtype)
         check("d=15, seeded SPD chain, cap 64, 37 active",
               *_spd_chain(15, 64, dev, 15), 37, dtype)
+        for d in chain.CHAIN_BLOCK_SIZES:   # a ragged last tile
+            check(f"d={d}, seeded SPD chain, cap 37, all active",
+                  *_spd_chain(d, 37, dev, d), 37, dtype)
     check(f"d=3, {POSE_N} Manhattan poses, cap {CHAIN_CAP}", DN, ON, POSE_N,
           torch.float64)
     err32 = check(f"d=3, {POSE_N} Manhattan poses, cap {CHAIN_CAP}", DN, ON,
@@ -743,14 +773,13 @@ def phase_chain(dev):
         if not (ms > 0 and p_n > 0):
             raise RuntimeError(f"chain_factorize d={d}: {ms} ms per call by "
                                f"events, {p_n} profiler events per call")
-        bound_ms, bound_by = chain_bound(CHAIN_CAP, d, 4)
+        bound_ms, bound_by, what = chain_bound(CHAIN_CAP, d, 4)
         print(f"[8] chain_factorize float32 cap {CHAIN_CAP} d={d}: "
               f"{ms:.4f} ms per call (CUDA events, 20 calls; torch.profiler "
               f"{p_ms / p_n:.4f} ms per kernel event, {20 * p_n:g} of 20 "
-              f"recorded), {ms / CHAIN_CAP * 1e6:.1f} ns per block: the "
-              f"dependent chain is what limits it; bound "
-              f"{bound_ms * 1e3:.3f} us by {bound_by} (3 x {CHAIN_CAP} x "
-              f"{d * d} x 4 B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+              f"recorded), {ms / CHAIN_CAP * 1e6:.1f} ns per block; bound "
+              f"{bound_ms * 1e3:.2f} us ({what}), "
+              f"{100 * bound_ms / ms:.2f}% of the kernel's time")
         if d == 3:
             U = chain_factorize(Dm, Om)
             Tf, Tb = chain.chain_scan_templates(U, Om)
@@ -777,7 +806,7 @@ def phase_chain(dev):
                   f"{plain256:.2f} ms at cap 256")
             rec = {"max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None}
+                   "bound_model": what, "library_ms": None}
     return rec
 
 
@@ -1236,6 +1265,13 @@ def _preint_inputs(lengths, dtype, dev, seed):
     return accs, gyros, dts, bias
 
 
+def _preint_covs(dev):
+    """The accelerometer, gyroscope and integration covariances [3, 3, 3]
+    of phase 14's launches, float64."""
+    return torch.tensor(np.stack([0.01 * np.eye(3), 1e-4 * np.eye(3),
+                                  1e-8 * np.eye(3)]), device=dev)
+
+
 def _preint_call(kind, inputs, covs, plain=False):
     """One of the three scans, kernel or plain version, on `inputs`."""
     accs, gyros, dts, bias = inputs
@@ -1275,8 +1311,7 @@ def phase_preint(dev):
     returns the records of preint_tangent and preint_rotation (float64, the
     batch path's launch of 2000 segments of 200 samples) and
     preint_rotation's launches through the public entry points."""
-    covs64 = torch.tensor(np.stack([0.01 * np.eye(3), 1e-4 * np.eye(3),
-                                    1e-8 * np.eye(3)]), device=dev)
+    covs64 = _preint_covs(dev)
     cases = ((f"S={PREINT_S} x N={PREINT_N}", [PREINT_N] * PREINT_S, 0),
              (f"ragged 1/37/{PREINT_N}", [1, 37, PREINT_N], 1))
     for label, lengths, seed in cases:
@@ -1360,7 +1395,8 @@ def phase_preint(dev):
                   f"% of the kernel's time; max |kernel - plain| {err:.2e}")
             rows[kind, S] = {"max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
-                             "bound_by": bound_by, "library_ms": None}
+                             "bound_by": bound_by, "bound_model": what,
+                             "library_ms": None}
     # each record is the launch of its kernel's main path: preint_tangent's
     # the stream's one segment (phase 17), preint_rotation's the batch of
     # phase 14's entry points; the other launch stands beside it
@@ -1534,9 +1570,11 @@ def chain_time_stream(dev, cap, d):
     once phase 18's second process has ended."""
     Dm, Om = chain.chain_prepare(*_spd_chain(d, cap, dev, 17), cap, CHAIN_LAM)
     c_ms = _time_ms(lambda: chain_factorize(Dm, Om), 20)
+    bound_ms, _, what = chain_bound(cap, d, 8)
     print(f"[17] chain_factorize float64 cap {cap} d={d}: {c_ms:.4f} ms per "
           f"call (CUDA events, 20 calls), {1e6 * c_ms / cap:.0f} ns per "
-          f"block")
+          f"block; bound {bound_ms * 1e3:.2f} us ({what}), "
+          f"{100 * bound_ms / c_ms:.2f}% of the kernel's time")
 
 
 def smart_stream_child(out_path):

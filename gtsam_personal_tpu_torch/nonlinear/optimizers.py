@@ -11,8 +11,11 @@ check_convergence, graph_error, optimize_gn, optimize_lm, lm_run, Result
   (lambda *= factor);
 - optional diagonal damping lambda * diag(H) as in `buildDampedSystem`.
 
-Solvers "dense", "pcg" and "schur" work. The feature-major layout
-(`fm=True`), the solvers "qr" and "sequential", a multi-level Schur plan and
+Solvers "dense", "pcg" and "schur" work. `fm=True` is accepted and runs the
+row layout: the JAX package's feature-major layout (linear/fm.py, which it
+takes for "pcg" and "schur") is a relayout for the TPU's tiles that
+exact-matches its row layout, so the row layout computes the same
+function. The solvers "qr" and "sequential", a multi-level Schur plan and
 the single-program `optimize_lm_jit` are not in the port yet; asking for one
 raises NotImplementedError with the ROADMAP item that will bring it.
 """
@@ -41,7 +44,7 @@ class Params:
     solver: str = "dense"          # 'dense' | 'pcg' | 'schur'
     pcg_maxiter: int = 250
     pcg_tol: float = 1e-8
-    fm: bool = False               # feature-major layout: not ported
+    fm: bool = False               # feature-major layout: the row layout here
     # LM:
     lambda_initial: float = 1e-5
     lambda_factor: float = 10.0
@@ -67,10 +70,6 @@ def check_convergence(params: Params, old_err, new_err):
 
 
 def _check_supported(params: Params, plan):
-    if params.fm:
-        raise NotImplementedError(
-            "Params(fm=True): the feature-major layout of linear/fm.py is "
-            "not ported (ROADMAP queue 1 item 9, with ISAM2)")
     if params.solver in ("qr", "sequential"):
         raise NotImplementedError(
             f"solver {params.solver!r}: linear/conditional.py is not ported "

@@ -94,6 +94,8 @@ def chain_factorize(Dm, Om):
     Uinv = torch.empty_like(Dm)
     if cap == 0:
         return Uinv
+    # the kernel copies D and O in bulk, from 16-byte boundaries
+    Dm, Om = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (Dm, Om))
     with torch.cuda.device(Dm.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(Dm.data_ptr(), Om.data_ptr(), Uinv.data_ptr(), cap, d,

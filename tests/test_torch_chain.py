@@ -6,6 +6,10 @@ and `.T` bring them to and from the port's [cap, d, d] and [cap, d] here, in
 the test, not in the port.
 """
 
+import ctypes
+import shutil
+import subprocess
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +18,7 @@ import torch
 
 from gtsam_personal_tpu.nonlinear import isam2 as jisam
 from gtsam_personal_tpu.slam import factors as jF
-from gtsam_personal_tpu_torch.ops import chain
+from gtsam_personal_tpu_torch.ops import _build, chain
 from gtsam_personal_tpu_torch.slam import factors as F
 
 F64 = torch.float64
@@ -169,6 +173,69 @@ def test_chain_factorize_counts_only_kernel_launches():
     chain.chain_factorize(*chain.chain_prepare(torch.tensor(D),
                                                torch.tensor(O), 8, 0.0))
     assert chain.chain_factorize.launches == before
+
+
+# --- the kernel's step arithmetic, compiled for the host ---------------------
+
+_HARNESS = r"""
+#include "chain_factorize.cu"
+template <typename T>
+int run(const T* D, const T* O, T* U, int64_t cap, int d) {
+  switch (d) {
+    case 3: chainf::chain_host<T, 3>(D, O, U, cap); return 0;
+    case 4: chainf::chain_host<T, 4>(D, O, U, cap); return 0;
+    case 6: chainf::chain_host<T, 6>(D, O, U, cap); return 0;
+    case 15: chainf::chain_host<T, 15>(D, O, U, cap); return 0;
+  }
+  return -1;
+}
+extern "C" int chain_f32(const float* D, const float* O, float* U,
+                         int64_t cap, int d) {
+  return run<float>(D, O, U, cap, d);
+}
+extern "C" int chain_f64(const double* D, const double* O, double* U,
+                         int64_t cap, int d) {
+  return run<double>(D, O, U, cap, d);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_chain(tmp_path_factory):
+    """csrc/chain_factorize.cu compiled for the host (the launch code is
+    left out without nvcc): the kernel's step functions, run by chain_host
+    in the kernel's order with the lanes of its warp taken in turn."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler on this host")
+    d = tmp_path_factory.mktemp("host_chain")
+    (d / "harness.cpp").write_text(_HARNESS)
+    lib = d / "libharness.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-I", str(_build.SOURCES[1].parent), "-o",
+                    str(lib), str(d / "harness.cpp")], check=True, timeout=120)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", chain.CHAIN_BLOCK_SIZES)
+def test_kernel_arithmetic_chain(host_chain, d, dtype):
+    """The kernel's arithmetic against chain_factorize_ref at capacity 64
+    with 37 active blocks: float64 to 1e-12 of the largest entry, float32 to
+    1e-4 (the two differ in the order of their sums and in the inverse,
+    adjugate or sweep against pivoted LU)."""
+    D, O = _spd_chain(d, CAP, seed=d)
+    Dm, Om = chain.chain_prepare(torch.tensor(D, dtype=dtype),
+                                 torch.tensor(O, dtype=dtype), NVAR, LAM)
+    U = torch.empty_like(Dm)
+    fn = host_chain.chain_f64 if dtype == F64 else host_chain.chain_f32
+    rc = fn(*(ctypes.c_void_p(x.data_ptr()) for x in (Dm, Om, U)),
+            ctypes.c_int64(CAP), ctypes.c_int(d))
+    assert rc == 0
+    ref = chain.chain_factorize_ref(Dm, Om)
+    rtol = 1e-12 if dtype == F64 else 1e-4
+    np.testing.assert_allclose(U.numpy(), ref.numpy(), rtol=0,
+                               atol=rtol * ref.abs().max().item())
 
 
 # --- the landmark residuals -------------------------------------------------

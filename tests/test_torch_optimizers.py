@@ -265,6 +265,20 @@ def test_optimize_gn_matches(case, solver):
     assert res.error == pytest.approx(ref.error, rel=1e-9)
 
 
+def test_optimize_lm_fm_matches(case):
+    """Params(fm=True, solver="pcg"): the JAX package's feature-major
+    layout against the port's row layout, which takes its place."""
+    kw = dict(solver="pcg", fm=True, pcg_maxiter=2000, pcg_tol=1e-12)
+    ref = jopt.optimize_lm(case.jgraph, case.jvalues,
+                           jopt.Params(diagnose_on_failure=False, **kw))
+    res = opt.optimize_lm(case.graph, case.values, opt.Params(**kw))
+    assert (res.iterations, res.converged) == (ref.iterations, ref.converged)
+    assert res.converged
+    # PCG stops at a residual tolerance, not at the exact solution
+    assert res.error == pytest.approx(ref.error, rel=1e-7)
+    assert res.lambda_final == pytest.approx(ref.lambda_final, rel=1e-12)
+
+
 def test_check_convergence_matches():
     for old, new in ((10.0, 9.0), (10.0, 9.99999), (1e-3, 1e-3 - 1e-7),
                      (5.0, 6.0), (0.0, 0.0)):
@@ -274,7 +288,6 @@ def test_check_convergence_matches():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"fm": True, "solver": "schur"}, NotImplementedError),
     ({"solver": "qr"}, NotImplementedError),
     ({"solver": "sequential"}, NotImplementedError),
     ({"solver": "cholmod"}, ValueError),
