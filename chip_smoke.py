@@ -111,12 +111,17 @@ processes start or after they end:
      at 2000 segments of 200 samples and on a ragged batch of 1, 37 and 200
      samples: float64 within 1e-10 of the largest entry of each output,
      float32 no further from the float64 plain version than 4 times the
-     plain float32's own distance (floor 1e-4 of the largest entry); the
-     manifold and AHRS entry points launch preint_rotation; device time per
-     launch (CUDA events; a torch.profiler pass beside them), the plain
-     version's and the bound (bytes, operations and the dependent chain of
-     200 steps), for the batch path's launch and for the stream's one
-     segment;
+     plain float32's own distance (floor 1e-4 of the largest entry);
+     preint_rotation in both modes on one segment of 2000 samples (float64,
+     1e-10), and the ragged batch's 37-sample segment equal to itself alone
+     bit for bit; the manifold and AHRS entry points launch
+     preint_rotation; time per launch (CUDA events around launches from
+     the host; the device's from a CUDA graph of launches beside it as
+     device_ms), the plain version's and the bound (bytes, operations and
+     the dependent chain: preint_tangent's 200 steps, preint_rotation's
+     reduction depth), for the batch path's launch and for the stream's
+     one segment, preint_rotation in both modes; the two entry points'
+     time whole;
  15. the IMU + GPS paths of tools/imu_gps_vio.py on a 20-fix stand-in of
      imuAndGPSdata.csv (write_imu_gps_csv) in float64, card against CPU:
      batch LM error to 1e-9 relative; the ISAM2 stream at the example's
@@ -156,6 +161,7 @@ each with the launch count from its main path, named in its
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -240,8 +246,13 @@ PREINT_T_REPLACES = "gtsam_personal_tpu/navigation/preintegration.py:112"
 PREINT_R_SOURCE = "gtsam_personal_tpu_torch/csrc/preint_rotation.cu"
 PREINT_R_REPLACES = "gtsam_personal_tpu/navigation/preintegration.py:171"
 PREINT_S, PREINT_N = 2000, 200      # the batch path's launch: 2000 fixes
+# one AHRS window of 10 s at 200 Hz: preint_rotation's rounds of 256 samples
+# carried 8 times
+PREINT_LONG = 2000
 # NVIDIA's H100 SXM data sheet: float64 on the tensor cores, the card's
-# highest float64 rate (34e12 outside them)
+# highest float64 rate. Scalar float64 FMAs peak at about 33.5e12 (132 SMs x
+# 64 FMAs x 2 x 1.98 GHz), so a kernel of scalar arithmetic reaches at most
+# about half of the bound this rate gives
 FP64_FLOP_PER_S = 67e12
 # operations of one sample as the step's structure needs them. preint_tangent:
 # A = d zeta+/d zeta is the identity but for its theta column (three 3 x 3
@@ -250,17 +261,29 @@ FP64_FLOP_PER_S = 67e12
 # result 339), the B and C terms 270 (R Sa R^T and Jl Sg Jl^T and their
 # scaled sums), Si dt 12, A H - [B | C] 423, the step's coefficients and
 # their derivatives about 300; preint_rotation in manifold mode: the primal
-# about 250, each of 6 tangents about 300
-TANGENT_FLOPS, ROTATION_FLOPS = 1938, 2050
-# the dependent chain of one sample, in cycles at the card's 1.98 GHz boost
-# clock: float64 FMAs take 8 cycles, a division or a square root about 40.
-# preint_tangent: theta+ needs |theta|^2 (3 FMAs), a square root and a
+# about 250, each of 6 tangents about 300; in AHRS mode: the primal about
+# 155 (Exp about 110, R E 45), each of 3 tangents about 200 (dE about 95,
+# dR E + R dE 105), the covariance step about 245 (Jl dt 45, Sg / dt 10,
+# J S J^T 90, E^T cov E 90, + Q 9)
+TANGENT_FLOPS, ROTATION_FLOPS, AHRS_FLOPS = 1938, 2050, 1000
+# the dependent chain of preint_tangent's step, in cycles at the card's
+# 1.98 GHz boost clock: float64 FMAs take 8 cycles, a division or a square
+# root about 40. theta+ needs |theta|^2 (3 FMAs), a square root and a
 # division, sin and cos (an 8-term polynomial) and Jl^-1 w dt (3 FMAs and
 # an add): 15 x 8 + 2 x 40 = 200; the covariance's chain (10 FMAs through
-# A cov and (A cov) A^T) is shorter and runs beside it. preint_rotation:
-# R+ = R Exp(w dt) and its tangents, 4 FMAs = 32
-CHAIN_CYCLES = {"tangent": 200, "manifold": 32}
+# A cov and (A cov) A^T) is shorter and runs beside it
+TANGENT_STEP_CYCLES = 200
 CLOCK_HZ = 1.98e9
+# preint_rotation's scan is a product of per-sample elements under an
+# associative composition, so its least dependent depth is one element and
+# ceil(log2 N) combines, in kernel_probes' float64 latencies (cycles): an
+# element is |phi|^2 (phi = w dt, then 3 FMAs), a square root, x / pi and
+# sincospi, then Exp's coefficients, their derivatives and the element's
+# 3 x 3 entries (8 FMAs; the reciprocal runs beside sincospi); a combine is
+# a 3 x 3 product (3 FMAs) and the product rule's add
+FMA64_CYCLES, SQRT64_CYCLES, SINCOSPI64_CYCLES = 8.82, 89.3, 195.5
+ELEMENT_CYCLES = 13 * FMA64_CYCLES + SQRT64_CYCLES + SINCOSPI64_CYCLES
+COMBINE_CYCLES = 4 * FMA64_CYCLES
 # phase 17 streams the first 500 fixes (100 000 samples, 8 minutes of
 # driving); phase 15's 20 fixes are the small stand-in of both paths
 VIO_SMALL, VIO_BATCH_FIXES, VIO_STREAM_FIXES = 20, 2000, 500
@@ -329,6 +352,33 @@ def _time_ms(fn, n=200):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _graph_ms(fn, k=20, reps=10):
+    """Device milliseconds per call of fn(), the host's launch path left
+    out: k calls captured in a CUDA graph (the kernels' wrappers launch on
+    the current stream, which the capture records), the graph replayed
+    `reps` times between two CUDA events after a warm-up."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(k):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * k)
 
 
 def phase_build():
@@ -1272,38 +1322,54 @@ def _preint_covs(dev):
                                   1e-8 * np.eye(3)]), device=dev)
 
 
-def _preint_call(kind, inputs, covs, plain=False):
-    """One of the three scans, kernel or plain version, on `inputs`."""
+def _preint_launcher(kind, inputs, covs, plain=False):
+    """fn() calling one of the three scans, kernel or plain version, on
+    `inputs`, its arguments made ready once."""
     accs, gyros, dts, bias = inputs
     if kind == "tangent":
         fn = preint_ops.preint_tangent_ref if plain else \
             preint_ops.preint_tangent
-        return fn(accs, gyros, dts, bias, covs)
+        return lambda: fn(accs, gyros, dts, bias, covs)
     fn = preint_ops.preint_rotation_ref if plain else \
         preint_ops.preint_rotation
     if kind == "manifold":
-        return fn("manifold", gyros, dts, bias, accs=accs)
-    return fn("ahrs", gyros, dts, bias[:, 3:].contiguous(),
-              gyro_cov=covs[1].contiguous())
+        return lambda: fn("manifold", gyros, dts, bias, accs=accs)
+    bias_w, gyro_cov = bias[:, 3:].contiguous(), covs[1].contiguous()
+    return lambda: fn("ahrs", gyros, dts, bias_w, gyro_cov=gyro_cov)
+
+
+def _preint_call(kind, inputs, covs, plain=False):
+    """One of the three scans, kernel or plain version, on `inputs`."""
+    return _preint_launcher(kind, inputs, covs, plain)()
 
 
 def preint_bound(kind, S, N, itemsize):
     """(bound_ms, bound_by, what) of one launch: the largest of the samples
-    read once (7 values each) and the outputs written once over the HBM
-    rate, the operations over the float64 rate, and N steps of the
-    dependent chain (CHAIN_CYCLES, a model); the chain's steps are
-    operations, so it is `bound_by` "operations" too."""
-    out = {"tangent": 145, "manifold": 15 + 6 * 15}[kind]
-    by_bytes = (7 * S * N + out * S) * itemsize / HBM_BYTES_PER_S * 1e3
-    flops = TANGENT_FLOPS if kind == "tangent" else ROTATION_FLOPS
+    read once (7 values each, 4 in AHRS mode) and the outputs written once
+    over the HBM rate, the operations over the float64 rate, and the
+    dependent chain, a model: preint_tangent's N steps of
+    TANGENT_STEP_CYCLES; preint_rotation's ("manifold", "ahrs") one element
+    and ceil(log2 N) combines deep. The chain's steps are operations, so it
+    is `bound_by` "operations" too; `what` names the term that bounds."""
+    reads = 4 if kind == "ahrs" else 7
+    out = {"tangent": 145, "manifold": 15 + 6 * 15,
+           "ahrs": 9 + 3 * 9 + 9}[kind]
+    by_bytes = (reads * S * N + out * S) * itemsize / HBM_BYTES_PER_S * 1e3
+    flops = {"tangent": TANGENT_FLOPS, "manifold": ROTATION_FLOPS,
+             "ahrs": AHRS_FLOPS}[kind]
     by_ops = flops * S * N / FP64_FLOP_PER_S * 1e3
-    by_chain = N * CHAIN_CYCLES[kind] / CLOCK_HZ * 1e3
-    terms = {"bytes": by_bytes, "operations": by_ops,
-             "dependent chain": by_chain}
+    if kind == "tangent":
+        cycles, chain = N * TANGENT_STEP_CYCLES, "dependent chain"
+    else:
+        cycles = ELEMENT_CYCLES + math.ceil(math.log2(max(N, 1))) * \
+            COMBINE_CYCLES
+        chain = "reduction depth"
+    by_chain = cycles / CLOCK_HZ * 1e3
+    terms = {"bytes": by_bytes, "operations": by_ops, chain: by_chain}
     what = max(terms, key=terms.get)
     return terms[what], ("bytes" if what == "bytes" else "operations"), (
         f"bytes {by_bytes * 1e3:.2f} us, operations {by_ops * 1e3:.2f} us, "
-        f"dependent chain {by_chain * 1e3:.2f} us: {what}")
+        f"{chain} {by_chain * 1e3:.2f} us: {what}")
 
 
 def phase_preint(dev):
@@ -1342,6 +1408,39 @@ def phase_preint(dev):
                   f"{max(w[1] for w in worst):.2f} of its limit (4 x the "
                   f"plain float32's own distance, floor 1e-4)")
 
+    # one long segment, float64: the rotation kernel's carry across rounds
+    long = _preint_inputs([PREINT_LONG], torch.float64, dev, 3)
+    for kind in ("manifold", "ahrs"):
+        t0 = time.perf_counter()
+        got = _preint_call(kind, long, covs64)
+        ref = _preint_call(kind, long, covs64, plain=True)
+        torch.cuda.synchronize()
+        worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+                    .item() for a, b in zip(got, ref))
+        print(f"[14] {kind:8s} float64 1 x {PREINT_LONG}: kernel == plain on "
+              f"the card, worst {worst:.2e} of the largest entry (limit "
+              f"1e-10); {time.perf_counter() - t0:.1f} s with the plain "
+              f"version")
+        if not worst <= 1e-10:
+            raise RuntimeError(f"[14] {kind} 1 x {PREINT_LONG}: {worst:.3e}")
+
+    # the rotation kernel's order does not depend on N: the 37-sample
+    # segment of the ragged batch, padded to 200, equals itself alone
+    ragged = _preint_inputs([1, 37, PREINT_N], torch.float64, dev, 1)
+    for dtype in (torch.float64, torch.float32):
+        padded = tuple(x.to(dtype) for x in ragged)
+        alone = tuple(x[1:2, :37].contiguous() for x in padded)
+        for kind in ("manifold", "ahrs"):
+            a = _preint_call(kind, padded, covs64.to(dtype))
+            b = _preint_call(kind, alone, covs64.to(dtype))
+            if not all(torch.equal(x[1], y[0]) for x, y in zip(a, b)):
+                raise RuntimeError(f"[14] preint_rotation {kind} {dtype}: "
+                                   f"the padded segment differs from itself "
+                                   f"alone")
+    print(f"[14] preint_rotation: a segment of 37 samples padded to "
+          f"{PREINT_N} equals itself alone bit for bit (manifold, AHRS; "
+          f"float64, float32)")
+
     # the manifold backend and AHRS through their entry points, counted
     in64 = _preint_inputs([PREINT_N] * PREINT_S, torch.float64, dev, 0)
     accs, gyros, dts, bias = in64
@@ -1362,23 +1461,23 @@ def phase_preint(dev):
         raise RuntimeError("[14] the manifold and AHRS entry points did not "
                            "go through preint_rotation")
 
-    # times of the batch path's launch and of the stream's (one segment);
-    # kernels of milliseconds: CUDA events around the launches are the
-    # record, the profiler's figure per kernel event stands beside them (a
-    # pass after earlier ones in this process can record no event of a
-    # kernel launched through ctypes)
+    # times of the batch path's launch and of the stream's (one segment):
+    # `ms` by CUDA events around launches from the host, as in earlier
+    # phases and PRs; `device_ms` beside it, the device's time per launch
+    # from a CUDA graph of launches (a kernel of microseconds is faster
+    # than the wrapper's host path, and the profiler, after earlier passes
+    # in this process, can record no event of a kernel launched through
+    # ctypes)
     one = _preint_inputs([PREINT_N], torch.float64, dev, 2)
     rows = {}
-    for kind in ("tangent", "manifold"):
+    for kind in ("tangent", "manifold", "ahrs"):
         for S, inputs in ((PREINT_S, in64), (1, one)):
-            def kernel():
-                return _preint_call(kind, inputs, covs64)
+            kernel = _preint_launcher(kind, inputs, covs64)
             ms = _time_ms(kernel, 10 if S > 1 else 20)
-            p_ms, n_ev = device_ms_per_call(kernel, 10)
-            prof = (f"torch.profiler {p_ms / n_ev:.4f} ms per kernel event"
-                    if n_ev > 0 else "torch.profiler recorded no event")
-            if not ms > 0:
-                raise RuntimeError(f"[14] {kind}: {ms} ms per launch")
+            device_ms = _graph_ms(kernel, 20)
+            if not (ms > 0 and device_ms > 0):
+                raise RuntimeError(f"[14] {kind}: {ms}, {device_ms} ms per "
+                                   f"launch")
             got = kernel()
             _sync(dev)
             t0 = time.perf_counter()
@@ -1387,23 +1486,49 @@ def phase_preint(dev):
             plain_ms = (time.perf_counter() - t0) * 1e3
             err = max((a - b).abs().max().item() for a, b in zip(got, ref))
             bound_ms, bound_by, what = preint_bound(kind, S, PREINT_N, 8)
+            step = (f"{1e3 * ms / PREINT_N:.2f} us per dependent step; "
+                    if kind == "tangent" else "")
             print(f"[14] {kind} float64 {S} x {PREINT_N}: kernel {ms:.4f} "
-                  f"ms per launch (CUDA events; {prof}), "
-                  f"{1e3 * ms / PREINT_N:.2f} us per dependent step; plain "
-                  f"version {plain_ms:.1f} ms (host clock, one call); bound "
+                  f"ms per launch (CUDA events), device {device_ms:.4f} ms "
+                  f"(a CUDA graph of 20), {step}plain version "
+                  f"{plain_ms:.1f} ms (host clock, one call); bound "
                   f"{bound_ms * 1e3:.2f} us ({what}), {100 * bound_ms / ms:.2f}"
-                  f"% of the kernel's time; max |kernel - plain| {err:.2e}")
+                  f"% of the kernel's time, {100 * bound_ms / device_ms:.2f}% "
+                  f"of the device's; max |kernel - plain| {err:.2e}")
             rows[kind, S] = {"max_abs_err": err, "ms": ms,
+                             "device_ms": device_ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by, "bound_model": what,
                              "library_ms": None}
+    # the entry points whole: the kernels, so3.logmap and its jvp (and in
+    # the manifold backend preint_tangent for the covariance), by CUDA
+    # events around 10 calls, which take the host's time in as well
+    entry = {}
+    for S, (accs, gyros, dts, bias) in ((PREINT_S, in64), (1, one)):
+        entry[S] = (
+            _time_ms(lambda: pre.integrate_manifold_batch(
+                params, bias, accs, gyros, dts), 10),
+            _time_ms(lambda: pre.integrate_ahrs_batch(
+                params.gyro_cov, bias[:, 3:], gyros, dts), 10))
+        print(f"[14] entry points, float64 {S} x {PREINT_N}: "
+              f"integrate_manifold_batch {entry[S][0]:.4f} ms a call "
+              f"(preint_rotation {rows['manifold', S]['ms']:.4f} and "
+              f"preint_tangent {rows['tangent', S]['ms']:.4f} of it), "
+              f"integrate_ahrs_batch {entry[S][1]:.4f} ms (preint_rotation "
+              f"{rows['ahrs', S]['ms']:.4f})")
     # each record is the launch of its kernel's main path: preint_tangent's
     # the stream's one segment (phase 17), preint_rotation's the batch of
-    # phase 14's entry points; the other launch stands beside it
+    # phase 14's entry points; the other launches stand beside it
     tangent = dict(rows["tangent", 1],
                    batch_launch={"S": PREINT_S, **rows["tangent", PREINT_S]})
-    rotation = dict(rows["manifold", PREINT_S],
-                    one_segment={"S": 1, **rows["manifold", 1]})
+    rotation = dict(
+        rows["manifold", PREINT_S],
+        one_segment={"S": 1, **rows["manifold", 1]},
+        ahrs={"S": PREINT_S, **rows["ahrs", PREINT_S]},
+        ahrs_one_segment={"S": 1, **rows["ahrs", 1]},
+        entry_points_ms={f"S={S}": {"integrate_manifold_batch": m,
+                                    "integrate_ahrs_batch": a}
+                         for S, (m, a) in entry.items()})
     return tangent, rotation, rot_launches
 
 

@@ -16,9 +16,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def device(name: str) -> torch.device:
-    """`torch.device(name)`; raises for a CUDA device when none is present,
-    instead of letting the caller run on the CPU unawares."""
+def device(name) -> torch.device:
+    """`torch.device(name)` of a name or a device; raises for a CUDA device
+    when none is present, instead of letting the caller run on the CPU
+    unawares."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but "

@@ -1,5 +1,7 @@
-// Rotation-carrying IMU scans with their bias tangents, one thread per
-// (segment, bias direction).
+// Rotation-carrying IMU scans with their bias tangents, as an ordered
+// reduction of per-sample elements: a block a segment, a warp each
+// gyroscope bias direction and a fourth for the accelerometer directions
+// (or AHRS's covariance).
 //
 // Replaces two lax.scans of gtsam_personal_tpu/navigation/preintegration.py,
 // each under jax.jacfwd over the bias:
@@ -14,62 +16,155 @@
 // holds the plain versions (Python loops under torch.func.jacfwd). The final
 // Log of deltaR and its derivative stay torch operations on the results.
 //
-// Mode 0, manifold: with a = acc - b_a, w = gyro - b_w, per sample
-//   a_nav = R a;  p+ = p + v dt + (dt^2/2) a_nav;  v+ = v + a_nav dt;
-//   R+ = R Exp(w dt)
-// and the forward-mode tangent of (R, p, v) in bias direction d (6 of them:
-// d < 3 moves b_a, d >= 3 moves b_w), by the product rule through the same
-// formulas, Exp's coefficients carried as values and derivatives in
-// t2 = |w dt|^2 with the Taylor branch of geometry/so3.py below 1e-6.
-// Mode 1, AHRS: R only, 3 gyro-bias directions, and the 3 x 3 covariance
-//   cov+ = Exp(w dt)^T cov Exp(w dt) + Jr (Sg/dt) Jr^T dt^2,
-//   Jr = Jl(-w dt),
-// taken by the direction-0 thread of each segment.
+// The function. With a = acc - b_a, w = gyro - b_w and E_n = Exp(w dt), the
+// scan is a product of one element per sample,
+//   X_n = (E_n, dv_n = a dt, dp_n = a dt^2/2, t_n = dt),
+// under the associative (not commutative) composition of [i,j) and [j,k):
+//   R_ik = R_ij R_jk,  v_ik = v_ij + R_ij v_jk,
+//   p_ik = p_ij + v_ij t_jk + R_ij p_jk,  t_ik = t_ij + t_jk,
+// the scan's step (ops/preintegration.py:_manifold_scan) regrouped. The
+// tangent in bias direction d (d < 3 moves b_a, d >= 3 b_w in mode 0; d < 3
+// moves b_w in mode 1) composes by the product rule:
+//   dR_ik = dR_ij R_jk + R_ij dR_jk,  dv_ik = dv_ij + dR_ij v_jk + R_ij dv_jk,
+//   dp_ik = dp_ij + dv_ij t_jk + dR_ij p_jk + R_ij dp_jk;
+// an accelerometer direction has dE = 0, so its dR is 0 throughout and is
+// not carried, and its dv, dp are columns of 3 x 3 matrices DV, DP that
+// compose as DV_ik = DV_ij + R_ij DV_jk, DP_ik = DP_ij + DV_ij t_jk +
+// R_ij DP_jk. In mode 1 (AHRS) the element also holds
+//   Q_n = (Jl(-w dt) dt) (Sg / dt_safe) (Jl(-w dt) dt)^T,
+// and the covariance composes as cov_ik = R_jk^T cov_ij R_jk + cov_jk
+// (ops/preintegration.py:ahrs_cov_ref's step regrouped).
+//
+// The grouping, which fixes the result to the bit. A round is kRound =
+// kLanes x kChunk samples. In each, lane l of a direction's warp composes
+// samples l kChunk .. l kChunk + kChunk - 1 of the round in order; lane 0
+// starts from the product of the rounds before (the carry), the other lanes
+// from the identity; then the 32 lanes combine left to right in a fixed
+// binary tree (warp shuffles, strides 1, 2, 4, 8, 16), which leaves the
+// product through the round in lane 0. kLanes, kChunk and the tree do not
+// depend on N. A sample of dt = 0, and a sample past the end of the segment,
+// acts as the identity exactly (E = I, dv = dp = 0, Q = 0, dE = 0), and
+// composing with the identity is exact, so a segment padded to any N gives
+// bitwise what it gives alone.
+//
+// The element builder. Each round, the block's threads first form the
+// records of the round's kRound samples, one thread a sample (E, phi = w dt,
+// Exp's coefficients A, B, dA, dB in t2 = |phi|^2, dt, and a in mode 0 or
+// Q's upper triangle in mode 1) into shared memory, structure of arrays in
+// the order the lanes read them (lane l's c-th sample at c kLanes + l: no
+// bank conflict). Square root, sine and cosine (as sincospi, whose
+// reduction needs no table in local memory) and one division are taken
+// once per sample here, off the composition, and every direction reads
+// them: a gyroscope direction forms its dE from them with a few FMAs.
 //
 // Layout: accs (mode 0), gyros [S, N, 3], dts [S, N], bias [S, 6] (mode 0)
 // or [S, 3] (mode 1), gyro_cov [3, 3] (mode 1); out R [S, 3, 3], dR
 // [S, nd, 3, 3], and p, v [S, 3], dp, dv [S, 6, 3] (mode 0) or cov [S, 3, 3]
-// (mode 1), nd = 6 or 3.
+// (mode 1), nd = 6 or 3. A block has 4 warps, one to each of an SM's four
+// schedulers: the 3 gyroscope directions and, in mode 0, the 3
+// accelerometer directions together, each carrying the primal; in mode 1
+// the covariance.
 //
-// What bounds it: a step is a few hundred operations on 7 inputs, so the
-// bytes (the samples, read once) and the operations are both small; what
-// limits a launch is the chain of N dependent steps of each thread. A
-// thread carries the primal and one tangent (30 values in mode 0) in
-// registers and shares nothing, so no barrier sits in the step; every
-// thread of a segment recomputes the primal, which costs operations the
-// card has to spare, and reads the same sample as its neighbours, which the
-// cache serves. Measured on an NVIDIA H100 80GB HBM3 (power limit 700 W) in
-// float64, manifold mode, by CUDA events (chip_smoke.py phase 14): 0.277 ms
-// for 2000 segments of 200 samples (the bound by operations is 24 us),
-// 0.237 ms for one segment (1.18 us a dependent step); 202-210 registers.
+// What bounds it: the operations of the 6 (3 + covariance) tangents and the
+// primal per sample, at the card's scalar float64 rate, for a batch of
+// segments; for one segment the depth of the reduction, one element and
+// log2 N combines deep (chip_smoke.py:preint_bound). Measured on an NVIDIA
+// H100 80GB HBM3 (power limit 700 W) by tools/time_kernels.py (PERF.md
+// section 6), float64, 200 samples a segment, per launch by CUDA events
+// around launches from the host: manifold 0.0421-0.0467 ms for one segment
+// and 0.0900-0.0908 ms for 2000, AHRS 0.0336-0.0440 and 0.0796-0.0798 ms;
+// the device's time alone, from a CUDA graph of launches: 0.0086, 0.0895,
+// 0.0084-0.0085 and 0.0783 ms (one segment's launch is the host's). The
+// accelerometer directions share a warp because each warp carries the
+// primal: a warp each (6 a block) took 13-17% longer in manifold mode.
+// 137 / 134 registers (manifold / AHRS) in float64, 72 / 64 in float32, no
+// stack; 47104 bytes of shared memory in float64, so 3 blocks an SM (4,
+// asked of __launch_bounds__, spill).
 //
 // The arithmetic below is plain C++ apart from the launch at the end, and
-// compiles for the host as well.
+// compiles for the host as well: rotation_host runs the kernel's rounds,
+// chunks and tree in the kernel's order.
 
 #include <stdint.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
-#define PREINT_HD __host__ __device__
+#define PREINT_HD __host__ __device__ __forceinline__
 #else
 #include <cmath>
-#define PREINT_HD
+#define PREINT_HD inline
 #endif
 
 namespace preint_rot {
 
 #ifndef __CUDACC__
 using std::cos;
+using std::fma;
 using std::sin;
 using std::sqrt;
 #endif
 
-constexpr double kSmall = 1e-6;   // geometry/so3.py:_SMALL
+constexpr double kSmall = 1e-6;            // geometry/so3.py:_SMALL
+constexpr int kLanes = 32;                 // lanes of a direction's warp
+constexpr int kChunk = 8;                  // samples a lane composes in order
+constexpr int kRound = kLanes * kChunk;    // samples of a round
+
+// The fields of a sample's record, each an array of kRound in shared memory.
+enum Field {
+  fE = 0,        // Exp(phi), 9
+  fPhi = 9,      // phi = w dt, 3
+  fA = 12, fB = 13, fdA = 14, fdB = 15,   // Exp's coefficients, d/d t2
+  fDt = 16,
+  fX = 17,       // mode 0: a (3); mode 1: Q's upper triangle (6)
+  kFields = 23
+};
+
+// What a warp carries: the 3 accelerometer directions, one gyroscope
+// direction (mode 0); one gyroscope direction, the covariance (mode 1).
+enum Kind { kAccel = 0, kGyro = 1, kAhrsGyro = 2, kAhrsCov = 3 };
+
+template <int K>
+struct Has {
+  static constexpr bool pv = K == kAccel || K == kGyro;  // p, v, t
+  static constexpr bool dR = K == kGyro || K == kAhrsGyro;
+  static constexpr bool cov = K == kAhrsCov;
+};
+
+// The product of a run of samples and its tangents; the fields a kind does
+// not carry are never touched.
+template <typename T, int K>
+struct State {
+  T R[9];
+  T p[3], v[3], t;
+  T dR[9];
+  T dp[3], dv[3];     // kGyro
+  T DP[9], DV[9];     // kAccel: column d is direction d's dp, dv
+  T cov[9];
+};
+
+#ifdef __CUDA_ARCH__
+// sin and cos of x as sincospi of x / pi: the reduction of a multiple of pi
+// is exact, so the device needs no large-argument path (which would put a
+// table in local memory); the product's rounding moves x by about an ulp
+__device__ __forceinline__ void sincos_of(float x, float& s, float& c) {
+  sincospif(x * 0.318309886183790671538f, &s, &c);
+}
+__device__ __forceinline__ void sincos_of(double x, double& s, double& c) {
+  sincospi(x * 0.318309886183790671537767526745, &s, &c);
+}
+#else
+template <typename T>
+inline void sincos_of(T x, T& s, T& c) {
+  s = sin(x);
+  c = cos(x);
+}
+#endif
 
 // A = sin(t)/t, B = (1 - cos t)/t^2, C = (t - sin t)/t^3 of t2 = t^2, and
-// the derivatives of A and B in t2 (geometry/so3.py:_trig_coeffs).
+// the derivatives of A and B in t2 (geometry/so3.py:_trig_coeffs), with
+// one division.
 template <typename T>
-PREINT_HD void trig_coeffs(T t2, T& A, T& B, T& C, T& dA, T& dB) {
+PREINT_HD void exp_coeffs(T t2, T& A, T& B, T& C, T& dA, T& dB) {
   if (t2 < T(kSmall)) {
     A = T(1.0) - t2 / T(6.0) + t2 * t2 / T(120.0);
     B = T(0.5) - t2 / T(24.0) + t2 * t2 / T(720.0);
@@ -78,13 +173,17 @@ PREINT_HD void trig_coeffs(T t2, T& A, T& B, T& C, T& dA, T& dB) {
     dB = -T(1.0) / T(24.0) + T(2.0) * t2 / T(720.0);
   } else {
     const T th = sqrt(t2);
-    const T dth = T(0.5) / th;
-    const T s = sin(th), c = cos(th);
-    A = s / th;
-    B = (T(1.0) - c) / t2;
-    C = (th - s) / (t2 * th);
-    dA = (c * dth) / th - s * dth / (th * th);
-    dB = (s * dth) / t2 - (T(1.0) - c) / (t2 * t2);
+    T s, c;
+    sincos_of(th, s, c);
+    const T rth = T(1.0) / th;
+    const T rt2 = rth * rth;
+    const T dth = T(0.5) * rth;
+    const T omc = T(1.0) - c;
+    A = s * rth;
+    B = omc * rt2;
+    C = (th - s) * (rt2 * rth);
+    dA = (c * dth) * rth - (s * dth) * rt2;
+    dB = (s * dth) * rt2 - omc * (rt2 * rt2);
   }
 }
 
@@ -95,175 +194,498 @@ PREINT_HD void hat(const T x[3], T M[9]) {
   M[6] = -x[1]; M[7] = x[0]; M[8] = T(0);
 }
 
+// hat(x)^2 = x x^T - |x|^2 I
 template <typename T>
-PREINT_HD void matmul3(const T A[9], const T B[9], T C[9]) {
+PREINT_HD void hat2(const T x[3], T M[9]) {
+  M[0] = -fma(x[1], x[1], x[2] * x[2]);
+  M[4] = -fma(x[0], x[0], x[2] * x[2]);
+  M[8] = -fma(x[0], x[0], x[1] * x[1]);
+  M[1] = M[3] = x[0] * x[1];
+  M[2] = M[6] = x[0] * x[2];
+  M[5] = M[7] = x[1] * x[2];
+}
+
+// C = A B + D (D = 0 if null), each entry a chain of fma() ending in A's
+// first column
+template <typename T>
+PREINT_HD void matmul3(const T A[9], const T B[9], T C[9],
+                       const T* D = nullptr) {
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j)
-      C[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] +
-                     A[3 * i + 2] * B[6 + j];
+      C[3 * i + j] = fma(A[3 * i], B[j],
+                         fma(A[3 * i + 1], B[3 + j],
+                             D ? fma(A[3 * i + 2], B[6 + j], D[3 * i + j])
+                               : A[3 * i + 2] * B[6 + j]));
 }
 
+// y = A x + z
 template <typename T>
-PREINT_HD void matvec3(const T A[9], const T x[3], T y[3]) {
+PREINT_HD void matvec_add(const T A[9], const T x[3], const T z[3], T y[3]) {
+#pragma unroll
   for (int i = 0; i < 3; ++i)
-    y[i] = A[3 * i] * x[0] + A[3 * i + 1] * x[1] + A[3 * i + 2] * x[2];
+    y[i] = fma(A[3 * i], x[0],
+               fma(A[3 * i + 1], x[1], fma(A[3 * i + 2], x[2], z[i])));
 }
 
-// E = Exp(phi) and its tangent dE in direction dphi.
+// out = E^T P E + Q
 template <typename T>
-PREINT_HD void exp_jvp(const T phi[3], const T dphi[3], T E[9], T dE[9]) {
-  const T t2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2];
-  const T dt2 = (dphi[0] * phi[0] + dphi[1] * phi[1] + dphi[2] * phi[2]) +
-                (phi[0] * dphi[0] + phi[1] * dphi[1] + phi[2] * dphi[2]);
-  T A, B, C, dA, dB;
-  trig_coeffs(t2, A, B, C, dA, dB);
-  T W[9], WW[9], D[9], DW[9], WD[9];
-  hat(phi, W);
-  matmul3(W, W, WW);
-  hat(dphi, D);
-  matmul3(D, W, DW);
-  matmul3(W, D, WD);
+PREINT_HD void congruence_add(const T P[9], const T E[9], const T Q[9],
+                              T out[9]) {
+  T M[9];
+  matmul3(P, E, M);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      out[3 * i + j] = fma(E[i], M[j],
+                           fma(E[3 + i], M[3 + j],
+                               fma(E[6 + i], M[6 + j], Q[3 * i + j])));
+}
+
+template <typename T, int K>
+PREINT_HD void set_identity(State<T, K>& x) {
+#pragma unroll
   for (int e = 0; e < 9; ++e) {
-    const T I = (e % 4 == 0) ? T(1) : T(0);
-    E[e] = I + A * W[e] + B * WW[e];
-    dE[e] = (dA * dt2) * W[e] + A * D[e] + (dB * dt2) * WW[e] +
-            B * (DW[e] + WD[e]);
+    x.R[e] = (e % 4 == 0) ? T(1) : T(0);
+    x.dR[e] = x.DP[e] = x.DV[e] = x.cov[e] = T(0);
   }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) x.p[i] = x.v[i] = x.dp[i] = x.dv[i] = T(0);
+  x.t = T(0);
 }
 
-// (acc, gyro, dt) of sample n into out[7] (acc left as it is in AHRS
-// mode, which has none).
+// The record of one sample (a, w with the bias removed; all zero past the
+// end of the segment) into column `pos` of the round's records.
 template <typename T, bool kAhrs>
-PREINT_HD void load_sample(const T* __restrict__ acc,
-                           const T* __restrict__ gyr,
-                           const T* __restrict__ dts, int64_t n, T out[7]) {
-  for (int i = 0; i < 3; ++i) {
-    if (!kAhrs) out[i] = acc[3 * n + i];
-    out[3 + i] = gyr[3 * n + i];
-  }
-  out[6] = dts[n];
-}
-
-// One segment in direction d (manifold mode: d < 6; AHRS mode: d < 3).
-template <typename T, bool kAhrs>
-PREINT_HD void rotation_segment(int d, const T* __restrict__ acc,
-                                const T* __restrict__ gyr,
-                                const T* __restrict__ dts, int64_t N,
-                                const T* __restrict__ bias,
-                                const T* __restrict__ gyro_cov,
-                                T* __restrict__ R_out,
-                                T* __restrict__ dR_out, T* __restrict__ p_out,
-                                T* __restrict__ v_out, T* __restrict__ dp_out,
-                                T* __restrict__ dv_out,
-                                T* __restrict__ cov_out) {
-  // bias tangent: -e_d on the bias component d moves (a, w) by -e
-  T da[3] = {T(0), T(0), T(0)}, dw[3] = {T(0), T(0), T(0)};
-  const T* bw = kAhrs ? bias : bias + 3;
-  if (kAhrs) {
-    dw[d] = T(-1);
-  } else if (d < 3) {
-    da[d] = T(-1);
+PREINT_HD void build_record(const T a[3], const T w[3], T dt,
+                            const T* __restrict__ gyro_cov,
+                            T (*rec)[kRound], int pos) {
+  const T phi[3] = {w[0] * dt, w[1] * dt, w[2] * dt};
+  const T t2 = fma(phi[0], phi[0], fma(phi[1], phi[1], phi[2] * phi[2]));
+  T A, B, C, dA, dB;
+  exp_coeffs(t2, A, B, C, dA, dB);
+  T W[9], WW[9];
+  hat(phi, W);
+  hat2(phi, WW);
+#pragma unroll
+  for (int e = 0; e < 9; ++e)
+    rec[fE + e][pos] = fma(B, WW[e], fma(A, W[e], (e % 4 == 0) ? T(1) : T(0)));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) rec[fPhi + i][pos] = phi[i];
+  rec[fA][pos] = A;
+  rec[fB][pos] = B;
+  rec[fdA][pos] = dA;
+  rec[fdB][pos] = dB;
+  rec[fDt][pos] = dt;
+  if constexpr (!kAhrs) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) rec[fX + i][pos] = a[i];
   } else {
-    dw[d - 3] = T(-1);
-  }
-  T R[9] = {T(1), T(0), T(0), T(0), T(1), T(0), T(0), T(0), T(1)};
-  T dR[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-  T p[3] = {T(0), T(0), T(0)}, v[3] = {T(0), T(0), T(0)};
-  T dp[3] = {T(0), T(0), T(0)}, dv[3] = {T(0), T(0), T(0)};
-  T P[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-  // the next sample is read while this one is worked on
-  T next[7] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-  if (N > 0) load_sample<T, kAhrs>(acc, gyr, dts, 0, next);
-  for (int64_t n = 0; n < N; ++n) {
-    const T dt = next[6];
-    const T w[3] = {next[3] - bw[0], next[4] - bw[1], next[5] - bw[2]};
-    const T am[3] = {next[0], next[1], next[2]};
-    if (n + 1 < N) load_sample<T, kAhrs>(acc, gyr, dts, n + 1, next);
-    if (!kAhrs) {
-      const T a[3] = {am[0] - bias[0], am[1] - bias[1], am[2] - bias[2]};
-      T a_nav[3], dRa[3], Rda[3];
-      matvec3(R, a, a_nav);
-      matvec3(dR, a, dRa);
-      matvec3(R, da, Rda);
-      const T h = T(0.5) * dt * dt;
-      for (int i = 0; i < 3; ++i) {
-        const T da_nav = dRa[i] + Rda[i];
-        p[i] = p[i] + v[i] * dt + h * a_nav[i];
-        dp[i] = dp[i] + dv[i] * dt + h * da_nav;
-        v[i] = v[i] + a_nav[i] * dt;
-        dv[i] = dv[i] + da_nav * dt;
-      }
-    }
-    const T phi[3] = {w[0] * dt, w[1] * dt, w[2] * dt};
-    const T dphi[3] = {dw[0] * dt, dw[1] * dt, dw[2] * dt};
-    T E[9], dE[9];
-    exp_jvp(phi, dphi, E, dE);
-    if (kAhrs && d == 0) {
-      // cov+ = E^T cov E + (Jr dt) (Sg / dt_safe) (Jr dt)^T, Jr = Jl(-phi)
-      const T t2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2];
-      T A_, B_, C_, dA_, dB_;
-      trig_coeffs(t2, A_, B_, C_, dA_, dB_);
-      const T mphi[3] = {-phi[0], -phi[1], -phi[2]};
-      T V[9], VV[9], Bm[9], Et[9], EtP[9], Pn[9], BS[9];
-      hat(mphi, V);
-      matmul3(V, V, VV);
-      for (int e = 0; e < 9; ++e) {
-        const T I = (e % 4 == 0) ? T(1) : T(0);
-        Bm[e] = (I + B_ * V[e] + C_ * VV[e]) * dt;
-        Et[e] = E[3 * (e % 3) + e / 3];
-      }
-      const T dt_safe = dt > T(1e-12) ? dt : T(1e-12);
-      matmul3(Et, P, EtP);
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) {
-          Pn[3 * i + j] = EtP[3 * i] * Et[3 * j] +
-                          EtP[3 * i + 1] * Et[3 * j + 1] +
-                          EtP[3 * i + 2] * Et[3 * j + 2];
-          BS[3 * i + j] = Bm[3 * i] * (gyro_cov[j] / dt_safe) +
-                          Bm[3 * i + 1] * (gyro_cov[3 + j] / dt_safe) +
-                          Bm[3 * i + 2] * (gyro_cov[6 + j] / dt_safe);
-        }
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j)
-          P[3 * i + j] = Pn[3 * i + j] + (BS[3 * i] * Bm[3 * j] +
-                                          BS[3 * i + 1] * Bm[3 * j + 1] +
-                                          BS[3 * i + 2] * Bm[3 * j + 2]);
-    }
-    T RE[9], dRE[9], RdE[9];
-    matmul3(R, E, RE);
-    matmul3(dR, E, dRE);
-    matmul3(R, dE, RdE);
+    // Jl(-phi) dt = (I - B W + C W^2) dt, then J (Sg / dt_safe) J^T
+    T J[9], S[9], JS[9];
+    const T rdt = T(1.0) / (dt > T(1e-12) ? dt : T(1e-12));
+#pragma unroll
     for (int e = 0; e < 9; ++e) {
-      R[e] = RE[e];
-      dR[e] = dRE[e] + RdE[e];
+      J[e] = fma(C, WW[e], fma(-B, W[e], (e % 4 == 0) ? T(1) : T(0))) * dt;
+      S[e] = gyro_cov[e] * rdt;
     }
-  }
-  for (int e = 0; e < 9; ++e) dR_out[e] = dR[e];
-  if (d == 0) {
-    for (int e = 0; e < 9; ++e) R_out[e] = R[e];
-    if (kAhrs) {
-      for (int e = 0; e < 9; ++e) cov_out[e] = P[e];
-    } else {
-      for (int i = 0; i < 3; ++i) {
-        p_out[i] = p[i];
-        v_out[i] = v[i];
-      }
-    }
-  }
-  if (!kAhrs) {
-    for (int i = 0; i < 3; ++i) {
-      dp_out[i] = dp[i];
-      dv_out[i] = dv[i];
-    }
+    matmul3(J, S, JS);
+    int u = 0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = i; j < 3; ++j, ++u)
+        rec[fX + u][pos] = fma(JS[3 * i], J[3 * j],
+                               fma(JS[3 * i + 1], J[3 * j + 1],
+                                   JS[3 * i + 2] * J[3 * j + 2]));
   }
 }
+
+// The record of sample n of a segment (n >= N: the identity's).
+template <typename T, bool kAhrs>
+PREINT_HD void build_sample(const T* __restrict__ acc,
+                            const T* __restrict__ gyr,
+                            const T* __restrict__ dts, int64_t N, int64_t n,
+                            const T* __restrict__ bias,
+                            const T* __restrict__ gyro_cov,
+                            T (*rec)[kRound], int pos) {
+  T a[3] = {T(0), T(0), T(0)}, w[3] = {T(0), T(0), T(0)}, dt = T(0);
+  if (n < N) {
+    const T* bw = kAhrs ? bias : bias + 3;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      if (!kAhrs) a[i] = acc[3 * n + i] - bias[i];
+      w[i] = gyr[3 * n + i] - bw[i];
+    }
+    dt = dts[n];
+  }
+  build_record<T, kAhrs>(a, w, dt, gyro_cov, rec, pos);
+}
+
+// The round's sample at record column pos: lane pos % kLanes, its
+// (pos / kLanes)-th sample.
+PREINT_HD int64_t sample_of(int64_t round, int pos) {
+  return round * kRound + (pos % kLanes) * kChunk + pos / kLanes;
+}
+
+// dE of the record at `pos` in the direction dphi = -dt e_k:
+//   dE = (dA dt2) W + A D + (dB dt2) W^2 + B (D W + W D),
+// with D = hat(dphi), dt2 = 2 phi . dphi and
+// D W + W D = -dt (e_k phi^T + phi e_k^T - 2 phi_k I).
+template <typename T>
+PREINT_HD void exp_tangent(const T (*rec)[kRound], int pos, int k, T dE[9]) {
+  const T phi[3] = {rec[fPhi][pos], rec[fPhi + 1][pos], rec[fPhi + 2][pos]};
+  const T A = rec[fA][pos], B = rec[fB][pos];
+  const T q = -rec[fDt][pos];
+  const T ek[3] = {k == 0 ? T(1) : T(0), k == 1 ? T(1) : T(0),
+                   k == 2 ? T(1) : T(0)};
+  const T phik = fma(ek[0], phi[0], fma(ek[1], phi[1], ek[2] * phi[2]));
+  const T dt2 = T(2.0) * (q * phik);
+  const T cA = rec[fdA][pos] * dt2, cB = rec[fdB][pos] * dt2;
+  T W[9], WW[9], He[9];
+  hat(phi, W);
+  hat2(phi, WW);
+  hat(ek, He);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int e = 3 * i + j;
+      const T sym = fma(ek[i], phi[j], phi[i] * ek[j]) -
+                    (i == j ? T(2.0) * phik : T(0));
+      dE[e] = fma(cA, W[e], fma(A, q * He[e], fma(cB, WW[e], B * (q * sym))));
+    }
+}
+
+// x = x X_n: the state composed with the element of the record at `pos`
+// (k: the gyroscope direction of kGyro and kAhrsGyro).
+template <typename T, int K>
+PREINT_HD void step(State<T, K>& x, const T (*rec)[kRound], int pos, int k) {
+  T E[9];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) E[e] = rec[fE + e][pos];
+  if constexpr (Has<K>::pv) {
+    const T dt = rec[fDt][pos];
+    const T h = (T(0.5) * dt) * dt;
+    const T a[3] = {rec[fX][pos], rec[fX + 1][pos], rec[fX + 2][pos]};
+    const T zero[3] = {T(0), T(0), T(0)};
+    T a_nav[3];
+    matvec_add(x.R, a, zero, a_nav);
+    if constexpr (K == kAccel) {
+      // direction d: da = -e_d, so its a_nav's tangent is -R e_d
+#pragma unroll
+      for (int e = 0; e < 9; ++e) {
+        x.DP[e] = fma(h, -x.R[e], fma(x.DV[e], dt, x.DP[e]));
+        x.DV[e] = fma(-x.R[e], dt, x.DV[e]);
+      }
+    } else {
+      T da_nav[3];
+      matvec_add(x.dR, a, zero, da_nav);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        x.dp[i] = fma(h, da_nav[i], fma(x.dv[i], dt, x.dp[i]));
+        x.dv[i] = fma(da_nav[i], dt, x.dv[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      x.p[i] = fma(h, a_nav[i], fma(x.v[i], dt, x.p[i]));
+      x.v[i] = fma(a_nav[i], dt, x.v[i]);
+    }
+    x.t = x.t + dt;
+  }
+  if constexpr (Has<K>::dR) {
+    T dE[9], RdE[9], dRn[9];
+    exp_tangent(rec, pos, k, dE);
+    matmul3(x.R, dE, RdE);
+    matmul3(x.dR, E, dRn, RdE);
+#pragma unroll
+    for (int e = 0; e < 9; ++e) x.dR[e] = dRn[e];
+  }
+  if constexpr (Has<K>::cov) {
+    const T* qu = &rec[fX][0];
+    const T Q[9] = {qu[0 * kRound + pos], qu[1 * kRound + pos],
+                    qu[2 * kRound + pos], qu[1 * kRound + pos],
+                    qu[3 * kRound + pos], qu[4 * kRound + pos],
+                    qu[2 * kRound + pos], qu[4 * kRound + pos],
+                    qu[5 * kRound + pos]};
+    T P[9];
+    congruence_add(x.cov, E, Q, P);
+#pragma unroll
+    for (int e = 0; e < 9; ++e) x.cov[e] = P[e];
+  }
+  T R[9];
+  matmul3(x.R, E, R);
+#pragma unroll
+  for (int e = 0; e < 9; ++e) x.R[e] = R[e];
+}
+
+// x = x y: x covers [i, j), y covers [j, k).
+template <typename T, int K>
+PREINT_HD void combine(State<T, K>& x, const State<T, K>& y) {
+  if constexpr (K == kAccel) {
+    T DPt[9], DV[9], DP[9];
+#pragma unroll
+    for (int e = 0; e < 9; ++e) DPt[e] = fma(x.DV[e], y.t, x.DP[e]);
+    matmul3(x.R, y.DV, DV, x.DV);
+    matmul3(x.R, y.DP, DP, DPt);
+#pragma unroll
+    for (int e = 0; e < 9; ++e) {
+      x.DV[e] = DV[e];
+      x.DP[e] = DP[e];
+    }
+  }
+  if constexpr (K == kGyro) {
+    T dpv[3], dv[3], dp[3], dv2[3], dp2[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) dpv[i] = fma(x.dv[i], y.t, x.dp[i]);
+    matvec_add(x.R, y.dv, x.dv, dv);
+    matvec_add(x.R, y.dp, dpv, dp);
+    matvec_add(x.dR, y.v, dv, dv2);
+    matvec_add(x.dR, y.p, dp, dp2);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      x.dv[i] = dv2[i];
+      x.dp[i] = dp2[i];
+    }
+  }
+  if constexpr (Has<K>::pv) {
+    T v[3], p[3], pv[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pv[i] = fma(x.v[i], y.t, x.p[i]);
+    matvec_add(x.R, y.v, x.v, v);
+    matvec_add(x.R, y.p, pv, p);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      x.v[i] = v[i];
+      x.p[i] = p[i];
+    }
+    x.t = x.t + y.t;
+  }
+  if constexpr (Has<K>::dR) {
+    T RdR[9], dR[9];
+    matmul3(x.R, y.dR, RdR);
+    matmul3(x.dR, y.R, dR, RdR);
+#pragma unroll
+    for (int e = 0; e < 9; ++e) x.dR[e] = dR[e];
+  }
+  if constexpr (Has<K>::cov) {
+    T P[9];
+    congruence_add(x.cov, y.R, y.cov, P);
+#pragma unroll
+    for (int e = 0; e < 9; ++e) x.cov[e] = P[e];
+  }
+  T R[9];
+  matmul3(x.R, y.R, R);
+#pragma unroll
+  for (int e = 0; e < 9; ++e) x.R[e] = R[e];
+}
+
+// Where a warp's result goes: the accelerometer directions' tangents (dR
+// is 0 for them) with the primal, gyroscope direction d's tangent (in mode
+// 1 direction 0's warp writes R), or cov.
+template <typename T, int K>
+PREINT_HD void store_state(const State<T, K>& x, int d, T* __restrict__ R,
+                           T* __restrict__ dR, T* __restrict__ p,
+                           T* __restrict__ v, T* __restrict__ dp,
+                           T* __restrict__ dv, T* __restrict__ cov) {
+  if constexpr (K == kAccel) {
+#pragma unroll
+    for (int e = 0; e < 9; ++e) {
+      R[e] = x.R[e];
+      dR[e] = dR[9 + e] = dR[18 + e] = T(0);
+      // DP, DV: column d is direction d's; dp, dv: row d is
+      dp[3 * (e % 3) + e / 3] = x.DP[e];
+      dv[3 * (e % 3) + e / 3] = x.DV[e];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      p[i] = x.p[i];
+      v[i] = x.v[i];
+    }
+  } else if constexpr (K == kGyro) {
+#pragma unroll
+    for (int e = 0; e < 9; ++e) dR[9 * d + e] = x.dR[e];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      dp[3 * d + i] = x.dp[i];
+      dv[3 * d + i] = x.dv[i];
+    }
+  } else if constexpr (K == kAhrsGyro) {
+#pragma unroll
+    for (int e = 0; e < 9; ++e) {
+      dR[9 * d + e] = x.dR[e];
+      if (d == 0) R[e] = x.R[e];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 9; ++e) cov[e] = x.cov[e];
+  }
+}
+
+#ifndef __CUDACC__
+// One round of one direction on the host: the lanes' chunks, lane 0 from
+// the carry, then the kernel's tree; the carry becomes the product through
+// the round.
+template <typename T, int K>
+void round_host(const T (*rec)[kRound], int k, State<T, K>& carry) {
+  State<T, K> lanes[kLanes];
+  for (int l = 0; l < kLanes; ++l) {
+    if (l == 0)
+      lanes[0] = carry;
+    else
+      set_identity(lanes[l]);
+    for (int c = 0; c < kChunk; ++c) step(lanes[l], rec, c * kLanes + l, k);
+  }
+  for (int s = 1; s < kLanes; s *= 2)
+    for (int l = 0; l + s < kLanes; l += 2 * s)
+      combine(lanes[l], lanes[l + s]);
+  carry = lanes[0];
+}
+
+// One segment on the host, in the kernel's grouping (rounds, chunks, the
+// tree); the outputs are the segment's rows of the kernel's.
+template <typename T, bool kAhrs>
+void rotation_host(const T* __restrict__ acc, const T* __restrict__ gyr,
+                   const T* __restrict__ dts, int64_t N,
+                   const T* __restrict__ bias,
+                   const T* __restrict__ gyro_cov, T* __restrict__ R,
+                   T* __restrict__ dR, T* __restrict__ p, T* __restrict__ v,
+                   T* __restrict__ dp, T* __restrict__ dv,
+                   T* __restrict__ cov) {
+  T rec[kFields][kRound];
+  constexpr int kG = kAhrs ? kAhrsGyro : kGyro;
+  State<T, kAccel> accel;
+  State<T, kG> gyro[3];
+  State<T, kAhrsCov> cv;
+  set_identity(accel);
+  for (int k = 0; k < 3; ++k) set_identity(gyro[k]);
+  set_identity(cv);
+  const int64_t rounds = (N + kRound - 1) / kRound;
+  for (int64_t r = 0; r < rounds; ++r) {
+    for (int pos = 0; pos < kRound; ++pos)
+      build_sample<T, kAhrs>(acc, gyr, dts, N, sample_of(r, pos), bias,
+                             gyro_cov, rec, pos);
+    for (int k = 0; k < 3; ++k) round_host(rec, k, gyro[k]);
+    if (kAhrs)
+      round_host(rec, 0, cv);
+    else
+      round_host(rec, 0, accel);
+  }
+  for (int k = 0; k < 3; ++k)
+    store_state(gyro[k], kAhrs ? k : 3 + k, R, dR, p, v, dp, dv, cov);
+  if (kAhrs)
+    store_state(cv, 0, R, dR, p, v, dp, dv, cov);
+  else
+    store_state(accel, 0, R, dR, p, v, dp, dv, cov);
+}
+#endif
 
 }  // namespace preint_rot
 
 #ifdef __CUDACC__
 namespace {
 
-constexpr int kThreads = 128;
+using preint_rot::kChunk;
+using preint_rot::kLanes;
+using preint_rot::kRound;
+
+constexpr int kThreads = 4 * kLanes;
+
+// Every thread of the block at barrier 0. The warps reach it from different
+// kinds' code (so not the .aligned form that __syncthreads() is), each
+// through the same barriers in the same order.
+__device__ __forceinline__ void block_sync() {
+  asm volatile("barrier.sync 0;\n" ::: "memory");
+}
+
+template <typename T, int K>
+__device__ __forceinline__ void shfl_down(const preint_rot::State<T, K>& x,
+                                          preint_rot::State<T, K>& y, int s) {
+  constexpr unsigned kAll = 0xffffffffu;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) y.R[e] = __shfl_down_sync(kAll, x.R[e], s);
+  if constexpr (preint_rot::Has<K>::pv) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      y.p[i] = __shfl_down_sync(kAll, x.p[i], s);
+      y.v[i] = __shfl_down_sync(kAll, x.v[i], s);
+    }
+    y.t = __shfl_down_sync(kAll, x.t, s);
+  }
+  if constexpr (K == preint_rot::kGyro) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      y.dp[i] = __shfl_down_sync(kAll, x.dp[i], s);
+      y.dv[i] = __shfl_down_sync(kAll, x.dv[i], s);
+    }
+  }
+  if constexpr (K == preint_rot::kAccel) {
+#pragma unroll
+    for (int e = 0; e < 9; ++e) {
+      y.DP[e] = __shfl_down_sync(kAll, x.DP[e], s);
+      y.DV[e] = __shfl_down_sync(kAll, x.DV[e], s);
+    }
+  }
+  if constexpr (preint_rot::Has<K>::dR) {
+#pragma unroll
+    for (int e = 0; e < 9; ++e) y.dR[e] = __shfl_down_sync(kAll, x.dR[e], s);
+  }
+  if constexpr (preint_rot::Has<K>::cov) {
+#pragma unroll
+    for (int e = 0; e < 9; ++e)
+      y.cov[e] = __shfl_down_sync(kAll, x.cov[e], s);
+  }
+}
+
+// One warp's direction k (of kind K) through every round of segment `seg`,
+// the whole block building each round's records first.
+template <typename T, bool kAhrs, int K>
+__device__ __forceinline__ void direction_warp(
+    int k, int d, const T* __restrict__ accs, const T* __restrict__ gyros,
+    const T* __restrict__ dts, const T* __restrict__ bias,
+    const T* __restrict__ gyro_cov, T* __restrict__ R, T* __restrict__ dR,
+    T* __restrict__ p, T* __restrict__ v, T* __restrict__ dp,
+    T* __restrict__ dv, T* __restrict__ cov, int64_t seg, int64_t N,
+    T (*rec)[kRound]) {
+  constexpr int nd = kAhrs ? 3 : 6;
+  const int lane = threadIdx.x % kLanes;
+  const T* acc = kAhrs ? nullptr : accs + seg * N * 3;
+  const T* gyr = gyros + seg * N * 3;
+  const T* dtv = dts + seg * N;
+  const T* b = bias + seg * (kAhrs ? 3 : 6);
+  preint_rot::State<T, K> x;
+  preint_rot::set_identity(x);
+  const int64_t rounds = (N + kRound - 1) / kRound;
+  for (int64_t r = 0; r < rounds; ++r) {
+    for (int pos = threadIdx.x; pos < kRound; pos += kThreads)
+      preint_rot::build_sample<T, kAhrs>(acc, gyr, dtv, N,
+                                         preint_rot::sample_of(r, pos), b,
+                                         gyro_cov, rec, pos);
+    block_sync();
+    // lane 0 goes on from the rounds before
+    if (lane != 0) preint_rot::set_identity(x);
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c)
+      preint_rot::step(x, rec, c * kLanes + lane, k);
+#pragma unroll
+    for (int s = 1; s < kLanes; s *= 2) {
+      preint_rot::State<T, K> y;
+      shfl_down(x, y, s);
+      preint_rot::combine(x, y);
+    }
+    block_sync();   // before the next round's records
+  }
+  if (lane == 0)
+    preint_rot::store_state(x, d, R + seg * 9, dR + seg * nd * 9,
+                            kAhrs ? nullptr : p + seg * 3,
+                            kAhrs ? nullptr : v + seg * 3,
+                            kAhrs ? nullptr : dp + seg * nd * 3,
+                            kAhrs ? nullptr : dv + seg * nd * 3,
+                            kAhrs ? cov + seg * 9 : nullptr);
+}
 
 template <typename T, bool kAhrs>
 __global__ void __launch_bounds__(kThreads)
@@ -272,22 +694,22 @@ preint_rotation_kernel(const T* __restrict__ accs, const T* __restrict__ gyros,
                        const T* __restrict__ gyro_cov, T* __restrict__ R,
                        T* __restrict__ dR, T* __restrict__ p,
                        T* __restrict__ v, T* __restrict__ dp,
-                       T* __restrict__ dv, T* __restrict__ cov, int64_t S,
-                       int64_t N) {
-  constexpr int nd = kAhrs ? 3 : 6;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= S * nd) return;
-  const int64_t seg = t / nd;
-  const int d = static_cast<int>(t % nd);
-  const int nb = kAhrs ? 3 : 6;
-  preint_rot::rotation_segment<T, kAhrs>(
-      d, kAhrs ? nullptr : accs + seg * N * 3, gyros + seg * N * 3,
-      dts + seg * N, N, bias + seg * nb, gyro_cov, R + seg * 9,
-      dR + (seg * nd + d) * 9, kAhrs ? nullptr : p + seg * 3,
-      kAhrs ? nullptr : v + seg * 3,
-      kAhrs ? nullptr : dp + (seg * nd + d) * 3,
-      kAhrs ? nullptr : dv + (seg * nd + d) * 3,
-      kAhrs ? cov + seg * 9 : nullptr);
+                       T* __restrict__ dv, T* __restrict__ cov, int64_t N) {
+  __shared__ T rec[preint_rot::kFields][kRound];
+  const int warp = threadIdx.x / kLanes;
+  const int64_t seg = blockIdx.x;
+  // warps 0-2: the gyroscope directions; warp 3: the accelerometer
+  // directions (mode 0) or the covariance (mode 1)
+  if (warp < 3) {
+    constexpr int kG = kAhrs ? preint_rot::kAhrsGyro : preint_rot::kGyro;
+    direction_warp<T, kAhrs, kG>(warp, kAhrs ? warp : 3 + warp, accs, gyros,
+                                 dts, bias, gyro_cov, R, dR, p, v, dp, dv,
+                                 cov, seg, N, rec);
+  } else {
+    constexpr int kO = kAhrs ? preint_rot::kAhrsCov : preint_rot::kAccel;
+    direction_warp<T, kAhrs, kO>(0, 0, accs, gyros, dts, bias, gyro_cov, R,
+                                 dR, p, v, dp, dv, cov, seg, N, rec);
+  }
 }
 
 template <typename T>
@@ -296,18 +718,16 @@ int launch(int mode, const void* accs, const void* gyros, const void* dts,
            void* v, void* dp, void* dv, void* cov, int64_t S, int64_t N,
            void* stream) {
   if (mode != 0 && mode != 1) return -1;
-  const int nd = mode == 1 ? 3 : 6;
   if (S > 0) {
-    const int64_t blocks = (S * nd + kThreads - 1) / kThreads;
     auto kernel = mode == 1 ? preint_rotation_kernel<T, true>
                             : preint_rotation_kernel<T, false>;
-    kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+    kernel<<<static_cast<unsigned int>(S), kThreads, 0,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(accs), static_cast<const T*>(gyros),
         static_cast<const T*>(dts), static_cast<const T*>(bias),
         static_cast<const T*>(gyro_cov), static_cast<T*>(R),
         static_cast<T*>(dR), static_cast<T*>(p), static_cast<T*>(v),
-        static_cast<T*>(dp), static_cast<T*>(dv), static_cast<T*>(cov), S, N);
+        static_cast<T*>(dp), static_cast<T*>(dv), static_cast<T*>(cov), N);
   }
   return static_cast<int>(cudaGetLastError());
 }

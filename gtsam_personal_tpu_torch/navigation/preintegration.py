@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from gtsam_personal_tpu_torch import config
 from gtsam_personal_tpu_torch.geometry import so3
 from gtsam_personal_tpu_torch.navigation import navstate
 from gtsam_personal_tpu_torch.ops import preintegration as ops
@@ -42,9 +43,11 @@ class PreintegrationParams(NamedTuple):
 
     @staticmethod
     def make_shared_u(g=9.81, accel_sigma=0.1, gyro_sigma=0.01,
-                      integration_sigma=1e-4, *, device="cpu",
+                      integration_sigma=1e-4, *, device="cuda",
                       dtype=torch.float64):
-        """MakeSharedU analogue: Z-up navigation frame, gravity (0, 0, -g)."""
+        """MakeSharedU analogue: Z-up navigation frame, gravity (0, 0, -g);
+        on the card unless `device` names another."""
+        device = config.device(device)
         eye = torch.eye(3, device=device, dtype=dtype)
         return PreintegrationParams(
             gravity=torch.tensor([0.0, 0.0, -g], device=device, dtype=dtype),
@@ -236,9 +239,11 @@ def ahrs_residual(xs, meas):
 _PARAM_FIELDS = PreintegrationParams._fields
 
 
-def params_from_numpy(p, *, device="cpu", dtype=torch.float64):
+def params_from_numpy(p, *, device="cuda", dtype=torch.float64):
     """PreintegrationParams from any record with its fields (the JAX
-    package's NamedTuple, a dict) whose values are arrays or None."""
+    package's NamedTuple, a dict) whose values are arrays or None; on the
+    card unless `device` names another."""
+    device = config.device(device)
     get = p.get if isinstance(p, dict) else lambda k: getattr(p, k, None)
     return PreintegrationParams(*(
         None if get(k) is None else torch.tensor(np.asarray(get(k)),
@@ -246,9 +251,11 @@ def params_from_numpy(p, *, device="cpu", dtype=torch.float64):
         for k in _PARAM_FIELDS))
 
 
-def pim_from_numpy(p, *, device="cpu", dtype=torch.float64) -> PIM:
+def pim_from_numpy(p, *, device="cuda", dtype=torch.float64) -> PIM:
     """A PIM from any record with its fields (the JAX package's PIM, a
-    dict, `pim_to_numpy`'s output)."""
+    dict, `pim_to_numpy`'s output); on the card unless `device` names
+    another."""
+    device = config.device(device)
     get = p.get if isinstance(p, dict) else lambda k: getattr(p, k)
     return PIM(*(torch.tensor(np.asarray(get(k)), device=device, dtype=dtype)
                  for k in PIM._fields))

@@ -36,7 +36,7 @@ def bias_prior_residual(xs, meas):
 
 def run(*, device="cuda", dtype=torch.float64, say=print):
     """Build and solve; returns (LM Result, true poses [9, 3, 4])."""
-    dev = config.device(device) if isinstance(device, str) else device
+    dev = config.device(device)
     params = pre.PreintegrationParams.make_shared_u(
         g=9.81, accel_sigma=0.02, gyro_sigma=0.002, device=dev, dtype=dtype)
     gravity = params.gravity.cpu().numpy()

@@ -105,9 +105,11 @@ def initial_state(init):
     return np.concatenate([R0, init[:3][:, None]], axis=1), init[7:10]
 
 
-def imu_params(*, device="cpu", dtype=torch.float64):
+def imu_params(*, device="cuda", dtype=torch.float64):
     """The reference example's imuParams() (ImuFactorsExample.cpp:85):
-    MakeSharedD(0.0), gravity already removed from the recorded data."""
+    MakeSharedD(0.0), gravity already removed from the recorded data; on
+    the card unless `device` names another."""
+    device = config.device(device)
     eye = torch.eye(3, device=device, dtype=dtype)
     return pre.PreintegrationParams(
         gravity=torch.zeros(3, device=device, dtype=dtype),
@@ -211,7 +213,7 @@ def run_batch(pose0, vel0, segments, gps, n, *, device, dtype,
     start "dead_reckoning" is the JAX example's; "gps" (`gps_start`) is for
     long drives, where the zero-bias dead reckoning drifts by the double
     integral of the accelerometer bias and LM does not come back from it."""
-    dev = config.device(device) if isinstance(device, str) else device
+    dev = config.device(device)
     params = imu_params(device=dev, dtype=dtype)
     rec = {"seconds": {}}
 
@@ -327,7 +329,7 @@ def run_stream(pose0, vel0, segments, gps, n, *, inner=3, cg=500,
     states, and over a long stream CG climbs to its cap of 500 (the JAX
     example's engine does the same: it reaches the cap at fix 36 of a
     50-fix stand-in); `refresh=1` rebuilds it every update."""
-    dev = config.device(device) if isinstance(device, str) else device
+    dev = config.device(device)
     params = imu_params(device=dev, dtype=dtype)
     isam = make_engine(pose0, vel0, n, cg=cg, relin=relin, refresh=refresh,
                        device=dev, dtype=dtype)

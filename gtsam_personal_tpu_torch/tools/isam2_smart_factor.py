@@ -92,7 +92,7 @@ def run(n_poses=12, n_landmarks=30, track_len=4, noise=0.002, *,
     triangulation (make_smart_residual's argument; the JAX example takes
     the default 3). `engine` overrides fields of ISAM2Params (the JAX
     example takes the defaults)."""
-    dev = config.device(device) if isinstance(device, str) else device
+    dev = config.device(device)
     T = track_len
     poses, tracks, odo = make_scene(n_poses, n_landmarks, T, noise)
     odo_meas = se3.expmap(_t(odo)).numpy()

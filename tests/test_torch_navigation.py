@@ -121,7 +121,7 @@ def test_integrate_matches_jax(case):
     accs, gyros, dts, bias = segment(case)
     jp = jpre.integrate(jparams(), *map(jnp.asarray, (bias, accs, gyros,
                                                        dts)))
-    tp = pre.integrate(pre.params_from_numpy(jparams()),
+    tp = pre.integrate(pre.params_from_numpy(jparams(), device="cpu"),
                        *map(t, (bias, accs, gyros, dts)))
     pim_close(tp, jp, pre.PIM._fields)
     if case == "slow":
@@ -133,8 +133,9 @@ def test_integrate_manifold_matches_jax(case):
     accs, gyros, dts, bias = segment(case, seed=2)
     jp = jpre.integrate_manifold(jparams(), *map(jnp.asarray,
                                                  (bias, accs, gyros, dts)))
-    tp = pre.integrate_manifold(pre.params_from_numpy(jparams()),
-                                *map(t, (bias, accs, gyros, dts)))
+    tp = pre.integrate_manifold(
+        pre.params_from_numpy(jparams(), device="cpu"),
+        *map(t, (bias, accs, gyros, dts)))
     pim_close(tp, jp, pre.PIM._fields)
 
 
@@ -155,8 +156,8 @@ def test_predict_and_compute_error_match_jax():
     bias2 = bias + 0.01 * rng.normal(size=6)
     jp = jpre.integrate(jparams(), *map(jnp.asarray, (bias, accs, gyros,
                                                        dts)))
-    tparams = pre.params_from_numpy(jparams())
-    tp = pre.pim_from_numpy(jp)
+    tparams = pre.params_from_numpy(jparams(), device="cpu")
+    tp = pre.pim_from_numpy(jp, device="cpu")
     close(pre.predict(tp, tparams, t(xi), t(bias2)).numpy(),
           jpre.predict(jp, jparams(), jnp.asarray(xi), jnp.asarray(bias2)),
           "predict")
@@ -199,7 +200,7 @@ def test_padded_batch_equals_segments_bitwise():
     segment exactly what it gives alone, in every backend."""
     segs, bias, (accs, gyros, dts) = _ragged(6)
     assert dts.shape == (3, N) and float(dts[0, 1:].abs().sum()) == 0.0
-    params = pre.params_from_numpy(jparams())
+    params = pre.params_from_numpy(jparams(), device="cpu")
     batch = pre.integrate_batch(params, t(bias), accs, gyros, dts)
     manif = pre.integrate_manifold_batch(params, t(bias), accs, gyros, dts)
     ahrs = pre.integrate_ahrs_batch(params.gyro_cov, t(bias[:, 3:]), gyros,
@@ -222,19 +223,37 @@ def test_numpy_round_trips():
     accs, gyros, dts, bias = segment("generic")
     jp = jpre.integrate(jparams(), *map(jnp.asarray, (bias, accs, gyros,
                                                        dts)))
-    tp = pre.pim_from_numpy(jp)
+    tp = pre.pim_from_numpy(jp, device="cpu")
     back = pre.pim_to_numpy(tp)
     for k in pre.PIM._fields:
         assert np.array_equal(back[k], np.asarray(getattr(jp, k)))
-    tparams = pre.params_from_numpy(jparams())
+    tparams = pre.params_from_numpy(jparams(), device="cpu")
     for k in pre.PreintegrationParams._fields:
         assert np.array_equal(getattr(tparams, k).numpy(),
                               np.asarray(getattr(jparams(), k)))
-    mine = pre.PreintegrationParams.make_shared_u()
+    mine = pre.PreintegrationParams.make_shared_u(device="cpu")
     for k in pre.PreintegrationParams._fields:
         assert np.array_equal(getattr(mine, k).numpy(),
                               np.asarray(getattr(jparams(), k)))
-    assert pre.params_from_numpy({"gravity": np.zeros(3)}).accel_cov is None
+    assert pre.params_from_numpy({"gravity": np.zeros(3)},
+                                 device="cpu").accel_cov is None
+
+
+def test_params_default_to_the_card():
+    """Without a device the constructors take the card, and raise where
+    there is none."""
+    from gtsam_personal_tpu_torch.tools import imu_gps_vio
+    makers = (pre.PreintegrationParams.make_shared_u,
+              lambda: pre.params_from_numpy(jparams()),
+              lambda: pre.pim_from_numpy({k: np.zeros(3)
+                                          for k in pre.PIM._fields}),
+              imu_gps_vio.imu_params)
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make()[0].device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                make()
 
 
 def test_wrappers_check_their_inputs():
@@ -284,19 +303,16 @@ extern "C" void rotation_f64(int ahrs, const double* a, const double* g,
     const double* d, const double* b, const double* gc, double* R,
     double* dR, double* p, double* v, double* dp, double* dv, double* cov,
     int64_t S, int64_t N) {
-  const int nd = ahrs ? 3 : 6;
-  for (int64_t s = 0; s < S; ++s)
-    for (int k = 0; k < nd; ++k) {
-      if (ahrs)
-        preint_rot::rotation_segment<double, true>(k, nullptr, g + s * N * 3,
-            d + s * N, N, b + s * 3, gc, R + s * 9, dR + (s * nd + k) * 9,
-            nullptr, nullptr, nullptr, nullptr, cov + s * 9);
-      else
-        preint_rot::rotation_segment<double, false>(k, a + s * N * 3,
-            g + s * N * 3, d + s * N, N, b + s * 6, gc, R + s * 9,
-            dR + (s * nd + k) * 9, p + s * 3, v + s * 3, dp + (s * nd + k) * 3,
-            dv + (s * nd + k) * 3, nullptr);
-    }
+  for (int64_t s = 0; s < S; ++s) {
+    if (ahrs)
+      preint_rot::rotation_host<double, true>(nullptr, g + s * N * 3,
+          d + s * N, N, b + s * 3, gc, R + s * 9, dR + s * 27, nullptr,
+          nullptr, nullptr, nullptr, cov + s * 9);
+    else
+      preint_rot::rotation_host<double, false>(a + s * N * 3, g + s * N * 3,
+          d + s * N, N, b + s * 6, gc, R + s * 9, dR + s * 54, p + s * 3,
+          v + s * 3, dp + s * 18, dv + s * 18, nullptr);
+  }
 }
 """
 
@@ -323,7 +339,7 @@ def _p(x):
 
 def test_kernel_arithmetic_tangent(host_kernels):
     segs, bias, (accs, gyros, dts) = _ragged(7)
-    covs = pre.params_from_numpy(jparams()).covs(accs)
+    covs = pre.params_from_numpy(jparams(), device="cpu").covs(accs)
     bias = t(bias)          # held here: the library reads its memory
     ref = ops.preint_tangent_ref(accs, gyros, dts, bias, covs)
     out = [torch.empty_like(r) for r in ref]
@@ -334,26 +350,79 @@ def test_kernel_arithmetic_tangent(host_kernels):
         close(o.numpy(), r.numpy(), name, rtol=1e-12)
 
 
+# csrc/preint_rotation.cu's round: 32 lanes of 8 samples
+ROUND = 256
+
+
+def _rotation_host(lib, mode, accs, gyros, dts, b, gcov):
+    """csrc/preint_rotation.cu's rotation_host on [S, N] samples: the
+    kernel's outputs, in the plain version's order."""
+    S, n = dts.shape
+    nd = 6 if mode == "manifold" else 3
+    R, dR = torch.empty(S, 3, 3, dtype=dts.dtype), torch.empty(
+        S, nd, 3, 3, dtype=dts.dtype)
+    if mode == "manifold":
+        p, v, dp, dv = (torch.empty(S, *sh, dtype=dts.dtype)
+                        for sh in ((3,), (3,), (6, 3), (6, 3)))
+        cov, out = None, (R, p, v, dR, dp, dv)
+    else:
+        p = v = dp = dv = None
+        cov = torch.empty(S, 3, 3, dtype=dts.dtype)
+        out = (R, dR, cov)
+    lib.rotation_f64(int(mode == "ahrs"),
+                     *map(_p, (accs, gyros, dts, b, gcov)),
+                     *map(_p, (R, dR, p, v, dp, dv, cov)),
+                     ctypes.c_int64(S), ctypes.c_int64(n))
+    return out
+
+
 @pytest.mark.parametrize("mode", ["manifold", "ahrs"])
 def test_kernel_arithmetic_rotation(host_kernels, mode):
-    segs, bias, (accs, gyros, dts) = _ragged(8)
+    """The kernel's grouping on the host against the plain scan: the ragged
+    1/17/20 batch and a segment of more than one round (the carry)."""
+    segs, bias, _ = _ragged(8)
+    rng = np.random.default_rng(18)
+    n = ROUND + 44
+    segs.append(np.concatenate([rng.normal(size=(n, 3)) + [0, 0, 9.81],
+                                0.5 * rng.normal(size=(n, 3))], 1))
+    bias = np.concatenate([bias, 0.01 * rng.normal(size=(1, 6))])
+    accs, gyros, dts = pre.pad_segments(segs, DT, device="cpu",
+                                        dtype=torch.float64)
     gcov = 1e-4 * torch.eye(3, dtype=torch.float64)
     b = t(bias) if mode == "manifold" else t(bias[:, 3:])
     ref = ops.preint_rotation_ref(mode, gyros, dts, b, accs=accs,
                                   gyro_cov=gcov)
-    out = [torch.empty_like(r) for r in ref]
-    if mode == "manifold":
-        R, p, v, dR, dp, dv = out
-        cov = None
-    else:
-        R, dR, cov = out
-        p = v = dp = dv = None
-    host_kernels.rotation_f64(int(mode == "ahrs"), *map(_p, (accs, gyros, dts,
-                                                             b, gcov)),
-                              *map(_p, (R, dR, p, v, dp, dv, cov)),
-                              ctypes.c_int64(3), ctypes.c_int64(N))
+    out = _rotation_host(host_kernels, mode, accs, gyros, dts, b, gcov)
     for k, (o, r) in enumerate(zip(out, ref)):
         close(o.numpy(), r.numpy(), f"output {k}", rtol=1e-12)
+
+
+@pytest.mark.parametrize("mode", ["manifold", "ahrs"])
+def test_kernel_order_padded_equals_alone(host_kernels, mode):
+    """The kernel's grouping does not depend on N: a segment padded with
+    dt = 0 samples, within a round and across rounds, gives bitwise what
+    it gives alone."""
+    rng = np.random.default_rng(19)
+    lengths = (1, 37, ROUND + 44)
+    segs = [np.concatenate([rng.normal(size=(n, 3)) + [0, 0, 9.81],
+                            0.5 * rng.normal(size=(n, 3))], 1)
+            for n in lengths]
+    bias = t(0.01 * rng.normal(size=(3, 6)))
+    b = bias if mode == "manifold" else bias[:, 3:].contiguous()
+    gcov = 1e-4 * torch.eye(3, dtype=torch.float64)
+    # padded to the longest (two rounds), then with zeros to three rounds
+    accs, gyros, dts = (torch.nn.functional.pad(
+        x, (0, 0) * (x.dim() - 2) + (0, 3 * ROUND - x.shape[1]))
+        for x in pre.pad_segments(segs, DT, device="cpu",
+                                  dtype=torch.float64))
+    padded = _rotation_host(host_kernels, mode, accs, gyros, dts, b, gcov)
+    for k, n in enumerate(lengths):
+        alone = _rotation_host(
+            host_kernels, mode, accs[k:k + 1, :n].contiguous(),
+            gyros[k:k + 1, :n].contiguous(), dts[k:k + 1, :n].contiguous(),
+            b[k:k + 1].contiguous(), gcov)
+        for j, (x, y) in enumerate(zip(padded, alone)):
+            assert torch.equal(x[k], y[0]), (n, j)
 
 
 # -- factors ---------------------------------------------------------------------
@@ -376,8 +445,8 @@ def test_builder_sugar_matches_jax():
     jp = jpre.integrate(jpar, *map(jnp.asarray, (bias, accs, gyros, dts)))
     ja = jpre.integrate_ahrs(jnp.eye(3) * 1e-6, jnp.asarray(bias[3:]),
                              jnp.asarray(gyros), jnp.asarray(dts))
-    tpar = pre.params_from_numpy(jpar)
-    tp = pre.pim_from_numpy(jp)
+    tpar = pre.params_from_numpy(jpar, device="cpu")
+    tp = pre.pim_from_numpy(jp, device="cpu")
     ta = pre.AhrsPIM(*(t(np.asarray(getattr(ja, k)))
                        for k in pre.AhrsPIM._fields))
     rng = np.random.default_rng(9)
