@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Phases, numbered as in the order they were added; any failure raises and
-the script exits non-zero. They run in this order: 1-8, 10-14, then 16 and
-17 beside two more processes of this script (`--child parity TMP`: phases 9
-and 15, which time nothing; `--child smart TMP`: phase 18's full-size
-stream), then the rest of 18; the kernels are timed before the other
-processes start or after they end:
+the script exits non-zero. They run in this order: 1-8, 10-14, 19, then 16
+and 17 beside three more processes of this script (`--child parity TMP`:
+phases 9 and 15, which time nothing; `--child smart TMP`: phase 18's
+full-size stream; `--child breadth TMP`: phase 19's card == CPU checks and
+phase 20, which time nothing), then the rest of 18; the kernels are timed
+before the other processes start or after they end:
   1. require CUDA (there is no CPU fallback) and print the card's name and
      power limit as nvidia-smi reports them;
   2. build the CUDA kernel from csrc/ with nvcc for sm_90a (set-up time);
@@ -153,7 +154,28 @@ processes start or after they end:
      with phases 9 and 15); gates: the error at most 1.05 times
      the batch optimum of the same graph, the aligned ATE rmse below the
      example's bound of 2 m; ms per update. chain_factorize's time at
-     phase 17's capacity and d = 15 is taken after that process has ended.
+     phase 17's capacity and d = 15 is taken after that process has ended;
+ 19. Shonan rotation averaging at full size: the 2500-pose sphere stand-in
+     of phase 12 through tools/shonan_averaging_cli.py's run, the staircase
+     p = 3..7 in float64 from the opt-in chordal start
+     (sfm/shonan.py:chordal_start); seconds, iterations and PCG iterations
+     of each level's LM, min_eigenvalue's seconds and ms a power step,
+     certified, p, min_eig, the cost, the angular errors against the truth
+     (gauge R_0 = I) of the result and of the start, peak memory; gates:
+     certified, and the result's rms error at most 1.1 times the start's;
+     then one PCG solve, one LM iteration and 50 power steps at p = 3 under
+     the profiler (device events a step, busy share), and
+     translation_recovery on the sphere's edges with exact directions
+     (seconds, error); in the breadth process: the staircase on the first
+     100 poses card == CPU (same start and v0; rotations to 1e-8, min_eig
+     to 1e-6), translation_recovery card == CPU on 6 positions (1e-9), and
+     the JAX example's own start on the full sphere as a record;
+ 20. the nonlinear breadth card == CPU in float64 on the problems of its
+     parity tests (marginals, dogleg, NCG, GNC, constrained, the misc
+     factors, the fixed-lag smoother, the incremental smoother on a
+     300-pose Manhattan stream, the concurrent filter and smoother), then
+     tools/{pose2_slam_example,fixed_lag_smoother,inverse_kinematics,
+     tutorials}.py once each on the card.
 
 The last two lines are a JSON record of the kernels ({"kernels": [...]},
 each with the launch count from its main path, named in its
@@ -172,10 +194,11 @@ import numpy as np
 import torch
 
 from gtsam_personal_tpu_torch import config, native
-from gtsam_personal_tpu_torch.core.graph import FactorBatch, GraphBuilder
+from gtsam_personal_tpu_torch.core.graph import (FactorBatch, FactorGraph,
+                                                 GraphBuilder)
 from gtsam_personal_tpu_torch.core.values import (Layout, Values,
                                                   values_from_numpy)
-from gtsam_personal_tpu_torch.geometry import se3
+from gtsam_personal_tpu_torch.geometry import se2, se3, so3
 from gtsam_personal_tpu_torch.linear import schur, solvers
 from gtsam_personal_tpu_torch.linear.linearize import (linearize,
                                                        linearize_batch)
@@ -183,23 +206,37 @@ from gtsam_personal_tpu_torch.linear.noise import NoiseModel
 from gtsam_personal_tpu_torch.core import manifolds
 from gtsam_personal_tpu_torch.navigation import preintegration as pre
 from gtsam_personal_tpu_torch.navigation import scenario
-from gtsam_personal_tpu_torch.nonlinear import isam2, optimizers
+from gtsam_personal_tpu_torch.nonlinear import (constrained, gnc, isam2,
+                                                marginals, misc, optimizers)
+from gtsam_personal_tpu_torch.nonlinear.concurrent import (
+    ConcurrentFilterSmoother)
+from gtsam_personal_tpu_torch.nonlinear.dogleg import (optimize_dogleg,
+                                                       optimize_ncg)
+from gtsam_personal_tpu_torch.nonlinear.fixed_lag import FixedLagSmoother
+from gtsam_personal_tpu_torch.nonlinear.incremental import (
+    IncrementalSmoother)
 from gtsam_personal_tpu_torch.ops import _build, chain
 from gtsam_personal_tpu_torch.ops import preintegration as preint_ops
 from gtsam_personal_tpu_torch.ops.block_solve import (
     landmark_block_solve, landmark_block_solve_ref)
 from gtsam_personal_tpu_torch.ops.chain import chain_factorize
-from gtsam_personal_tpu_torch.sfm import ba, ba_pack, synthetic
+from gtsam_personal_tpu_torch.sfm import (averaging, ba, ba_pack, shonan,
+                                          synthetic)
 from gtsam_personal_tpu_torch.slam import (dataset, factors as F, initialize,
                                            manhattan, metrics)
 from gtsam_personal_tpu_torch.tools import factor_samples, profile_isam2
+from gtsam_personal_tpu_torch.tools import fixed_lag_smoother as fixed_lag_tool
 from gtsam_personal_tpu_torch.tools import imu_gps_vio as vio
+from gtsam_personal_tpu_torch.tools import inverse_kinematics as ik_tool
+from gtsam_personal_tpu_torch.tools import pose2_slam_example as pose2_tool
+from gtsam_personal_tpu_torch.tools import shonan_averaging_cli as shonan_cli
+from gtsam_personal_tpu_torch.tools import tutorials as tutorials_tool
 from gtsam_personal_tpu_torch.tools import isam2_smart_factor as smart_tool
 from gtsam_personal_tpu_torch.utils import serialization
 from gtsam_personal_tpu_torch.tools.profile_isam2 import (
     ISAM_N, ISAM_PARAMS, ISAM_UPDATE_EVERY)
 from gtsam_personal_tpu_torch.tools.profile_pose_graph import (
-    POSE_ITERS, POSE_LAM0, POSE_N, POSE_PART, device_ms_per_call)
+    POSE_ITERS, POSE_LAM0, POSE_N, POSE_PART, device_ms, device_ms_per_call)
 
 KERNEL_SOURCE = "gtsam_personal_tpu_torch/csrc/landmark_block_solve.cu"
 KERNEL_REPLACES = "gtsam_personal_tpu/ops/pallas_kernels.py:23"
@@ -1741,7 +1778,8 @@ def parity_child(tmp):
 
 
 CHILDREN = {"smart": "phase 18's full-size stream",
-            "parity": "phases 9 and 15"}
+            "parity": "phases 9 and 15",
+            "breadth": "phase 19's card == CPU checks and phase 20"}
 
 
 def start_child(kind, tmp):
@@ -1766,7 +1804,7 @@ def join_child(child):
           f"{CHILDREN[kind]} (exit code {rc})")
     with open(log) as f:
         text = f.read()
-    if kind == "parity" or rc != 0:
+    if kind != "smart" or rc != 0:
         print(text if rc == 0 else text[-4000:], end="")
     if rc != 0:
         raise RuntimeError(f"the process of {CHILDREN[kind]} exited with "
@@ -1852,6 +1890,459 @@ def phase_breadth(dev):
           f"({worst[1]})")
 
 
+SHONAN_PMAX = 7
+SHONAN_RMS_FACTOR = 1.1     # the result's rms error / the chordal start's
+SHONAN_PREFIX = 100         # poses of the card == CPU staircase
+POWER_STEPS = 400           # min_eigenvalue's steps (its default)
+
+
+def rotation_errors(Rs, truth):
+    """(largest, rms) angle in rad between rotations [n, 3, 3] and the
+    truth's [n, 3, 4], both taken to the gauge R_0 = I."""
+    A = np.einsum("ba,nbc->nac", Rs[0], Rs)
+    B = np.einsum("ba,nbc->nac", truth[0, :, :3], truth[:, :, :3])
+    ang = np.arccos(np.clip((np.einsum("nab,nab->n", A, B) - 1) / 2, -1, 1))
+    return float(ang.max()), float(np.sqrt((ang ** 2).mean()))
+
+
+def sphere_rotations():
+    """(edges [K, 2], relative rotations [K, 3, 3], truth) of the sphere
+    stand-in, as the file carries them."""
+    truth, edges, meas, _ = sphere_standin()
+    return np.asarray(edges), meas[:, :, :3], truth
+
+
+def _profiled(fn):
+    """(fn(), wall ms, device ms, device events) of one profiled call."""
+    _sync("cuda")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        _sync("cuda")
+        wall = (time.perf_counter() - t0) * 1e3
+    total, events, _ = device_ms(prof)
+    return out, wall, total, events
+
+
+def phase_shonan(dev, tmp):
+    """Shonan averaging at full size: tools/shonan_averaging_cli.py's run
+    on the 2500-pose sphere stand-in, p = 3..SHONAN_PMAX, float64, from the
+    opt-in chordal start (sfm/shonan.py:chordal_start); seconds by level,
+    PCG iterations, the power method's ms a step, errors against the truth;
+    then one profiled PCG solve, LM iteration and power method at p = 3,
+    and translation_recovery at the sphere's size."""
+    path = f"{tmp}/sphere_standin.g2o"
+    truth = write_sphere(path)
+    torch.cuda.reset_peak_memory_stats()
+    notes = []
+    rec = shonan_cli.run(path, 3, SHONAN_PMAX, device=dev, start="chordal",
+                         say=lambda s: print(f"[19] {s}"),
+                         note=notes.append)
+    peak = _peak_mib(dev)
+    res = rec["result"]
+    print(f"[19] chordal start (host, opt-in, ROADMAP queue 3 C11): "
+          f"{rec['chordal_s']:.3f} s")
+    for lv in rec["levels"]:
+        pcg = np.array(lv["pcg"])
+        print(f"[19] p={lv['p']}: LM {lv['lm_s']:.3f} s, "
+              f"{lv['lm_iterations']} iterations, {len(pcg)} tries, PCG "
+              f"{pcg.mean():.1f} iterations a try (largest {pcg.max()}, "
+              f"{int((pcg >= 400).sum())} at the cap of 400); "
+              f"min_eigenvalue {lv['eig_s']:.3f} s, "
+              f"{lv['eig_s'] * 1e3 / POWER_STEPS:.3f} ms a power step, "
+              f"min_eig {lv['min_eig']:.4e}")
+    e_res = rotation_errors(res.rotations, truth)
+    e_ch = rotation_errors(rec["chordal"], truth)
+    print(f"[19] staircase {rec['seconds']:.3f} s (chordal start included):"
+          f" certified {res.certified} at p={res.p_final}, min_eig "
+          f"{res.min_eig:.4e}, cost {res.cost:.9g}; angular error against "
+          f"the truth (R_0 = I): result largest {e_res[0]:.5f} rad, rms "
+          f"{e_res[1]:.6f}; chordal start alone largest {e_ch[0]:.5f}, rms "
+          f"{e_ch[1]:.6f}; peak memory {peak:.0f} MiB")
+    if not res.certified:
+        raise RuntimeError(f"gate: [19] not certified up to p = "
+                           f"{SHONAN_PMAX} (min_eig {res.min_eig})")
+    if not e_res[1] <= SHONAN_RMS_FACTOR * e_ch[1]:
+        raise RuntimeError(f"gate: [19] rms error {e_res[1]} above "
+                           f"{SHONAN_RMS_FACTOR} x the chordal start's "
+                           f"{e_ch[1]}")
+    print(f"[19] gates passed: certified; rms {e_res[1]:.6f} <= "
+          f"{SHONAN_RMS_FACTOR} x {e_ch[1]:.6f}")
+
+    # one PCG solve, one LM iteration and the power method at p = 3, from
+    # the chordal start, each under the profiler
+    edges, R_meas = rec["edges"], rec["R_meas"]
+    kappa = np.ones(len(edges))
+    graph = shonan.build_graph_at(3, edges, R_meas, kappa, device=dev,
+                                  dtype=torch.float64)
+    values = Values({"sop3": torch.tensor(rec["chordal"], device=dev)})
+    lin = linearize(graph, values)
+    with shonan_cli.count_pcg_iterations() as used:
+        _, wall, dev_ms, events = _profiled(lambda: solvers.solve_pcg(
+            lin, 1e-5, maxiter=400, tol=1e-8))
+    it = used[0]
+    print(f"[19] one PCG solve at p=3 (lambda 1e-5, the chordal start): "
+          f"{it} iterations, {wall:.1f} ms wall with the profiler on, "
+          f"device {dev_ms:.2f} ms; {events / it:.1f} device events and "
+          f"{wall / it:.3f} ms wall a PCG iteration (the preconditioner's "
+          f"factorization and the right side included)")
+    params = optimizers.Params(solver="pcg", pcg_maxiter=400,
+                               max_iterations=1)
+    _, wall, dev_ms, events = _profiled(lambda: optimizers.optimize_lm(
+        graph, values, params))
+    print(f"[19] one LM iteration at p=3: wall {wall:.1f} ms (profiler "
+          f"on), device {dev_ms:.2f} ms, busy share {dev_ms / wall:.3f}, "
+          f"{events} device events")
+    Y3 = rec["chordal"]
+    (_, _), wall, dev_ms, events = _profiled(lambda: shonan.min_eigenvalue(
+        edges, R_meas, kappa, Y3, iters=50, device=dev))
+    print(f"[19] min_eigenvalue, 50 steps: wall {wall:.1f} ms (profiler "
+          f"on), device {dev_ms:.2f} ms, {events / 52:.1f} device events a "
+          f"step (50 steps and two Rayleigh quotients)")
+
+    # translation averaging at the sphere's size, directions from the truth
+    t = truth[:, :, 3]
+    d = t[edges[:, 1]] - t[edges[:, 0]]
+    dirs = d / np.linalg.norm(d, axis=1, keepdims=True)
+    est, secs = _timed(lambda: averaging.translation_recovery(
+        edges, dirs, scale=float(np.linalg.norm(d[0])), device=dev), dev)
+    ate = metrics.ate(est, t - t[0], align=True, with_scale=True)["rmse"]
+    print(f"[19] translation_recovery, {len(t)} positions from {len(edges)} "
+          f"exact directions (dense LM, the default): {secs:.2f} s, "
+          f"similarity-aligned ATE rmse {ate:.3e} m")
+    queue2_item7(dev)
+
+
+def queue2_item7(dev):
+    """The two short loops ROADMAP queue 2 item 7 keeps as torch ops, timed
+    on the card: karcher_mean_so3 (20 steps) of 2500 rotations, and one
+    IncrementalSmoother.solve() (3 damped Gauss-Newton steps, PCG at most
+    60) at the end of a 300-pose Manhattan stream."""
+    rng = np.random.default_rng(3)
+    Rs = so3.expmap(torch.tensor(0.05 * rng.normal(size=(2500, 3)),
+                                 device=dev)) @ so3.expmap(torch.tensor(
+                                     [0.4, -0.1, 0.2], dtype=torch.float64,
+                                     device=dev))
+    averaging.karcher_mean_so3(Rs)
+    ms = [1e3 * _timed(lambda: averaging.karcher_mean_so3(Rs), dev)[1]
+          for _ in range(3)]
+    _, wall, dev_ms, events = _profiled(lambda: averaging.karcher_mean_so3(
+        Rs))
+    print(f"[19] karcher_mean_so3, 2500 rotations, 20 steps: "
+          f"{', '.join(f'{m:.2f}' for m in ms)} ms a call; profiled "
+          f"{wall:.2f} ms wall, device {dev_ms:.3f} ms, {events / 20:.1f} "
+          f"device events a step")
+    inc = _manhattan_stream(dev, 300)
+    inc.solve()
+    ms = [1e3 * _timed(inc.solve, dev)[1] for _ in range(3)]
+    _, wall, dev_ms, events = _profiled(inc.solve)
+    print(f"[19] IncrementalSmoother.solve() at {inc.n} poses, {inc.f} "
+          f"factors (capacities {inc.cap_n} / {inc.cap_f}): "
+          f"{', '.join(f'{m:.1f}' for m in ms)} ms a call; profiled "
+          f"{wall:.1f} ms wall, device {dev_ms:.2f} ms, busy share "
+          f"{dev_ms / wall:.3f}, {events} device events")
+
+
+def _seconds_since(t0):
+    return time.perf_counter() - t0
+
+
+def phase_shonan_parity(dev, tmp):
+    """Phase 19's card == CPU checks, in the breadth child: the staircase on
+    the sphere's first SHONAN_PREFIX poses (same start, same v0),
+    translation_recovery on a small seeded problem, and the JAX example's
+    own start on the full sphere as a record (not a gate: it changes from
+    run to run, ROADMAP queue 3 C11)."""
+    edges, R_meas, truth = sphere_rotations()
+    keep = edges.max(1) < SHONAN_PREFIX
+    e, R = edges[keep], R_meas[keep]
+    init = shonan.chordal_start(e, R, SHONAN_PREFIX)
+    v0 = np.random.default_rng(1).normal(size=(SHONAN_PREFIX, 3))
+    c, h = (shonan.shonan_averaging(e, R, init=init, v0=v0, device=d)
+            for d in (dev, torch.device("cpu")))
+    gap = np.abs(c.rotations - h.rotations).max()
+    print(f"[19] {SHONAN_PREFIX}-pose prefix ({len(e)} edges), card / CPU: "
+          f"certified {c.certified} / {h.certified} at p={c.p_final} / "
+          f"{h.p_final}, min_eig {c.min_eig:.6e} / {h.min_eig:.6e}; "
+          f"rotations max |card - CPU| {gap:.2e} (limit 1e-8)")
+    if ((c.certified, c.p_final) != (h.certified, h.p_final)
+            or not gap <= 1e-8 or not abs(c.min_eig - h.min_eig) <= 1e-6):
+        raise RuntimeError("[19] the staircase on the card left the CPU's")
+    rng = np.random.default_rng(2)
+    tt = rng.normal(scale=2.0, size=(6, 3))
+    ij = np.array([(i, j) for i in range(6) for j in range(i + 1, 6)])
+    dd = tt[ij[:, 1]] - tt[ij[:, 0]]
+    dirs = dd / np.linalg.norm(dd, axis=1, keepdims=True)
+    a, b = (averaging.translation_recovery(ij, dirs, scale=1.0, device=d)
+            for d in (dev, "cpu"))
+    print(f"[19] translation_recovery, 6 positions: max |card - CPU| "
+          f"{np.abs(a - b).max():.2e} (limit 1e-9)")
+    if not np.abs(a - b).max() <= 1e-9:
+        raise RuntimeError("[19] translation_recovery card vs CPU")
+    path = f"{tmp}/sphere_reference_start.g2o"
+    write_sphere(path)
+    t0 = time.perf_counter()
+    rec = shonan_cli.run(path, 3, SHONAN_PMAX, device=dev,
+                         start="reference", say=_quiet, note=_quiet)
+    r = rec["result"]
+    print(f"[19] the JAX example's start on the sphere (a record): "
+          f"{_seconds_since(t0):.1f} s, certified {r.certified} at p="
+          f"{r.p_final}, {len(rec['levels'])} levels; rms error of the "
+          f"result {rotation_errors(r.rotations, truth)[1]:.4f} rad, of "
+          f"that start {rotation_errors(rec['chordal'], truth)[1]:.4f} rad "
+          f"(its transpose "
+          f"{rotation_errors(np.swapaxes(rec['chordal'], 1, 2), truth)[1]:.4f})")
+
+
+def _chain_problem(dev):
+    gb = GraphBuilder()
+    F.add_prior(gb, "se2", 0, np.zeros(3), F.diag_noise([0.1] * 3))
+    for i in range(3):
+        F.add_between(gb, "se2", i, i + 1, np.array([1.0, 0, 0]),
+                      F.diag_noise([0.1] * 3))
+    poses = np.zeros((4, 3))
+    poses[:, 0] = np.arange(4)
+    return gb.build(device=dev, dtype=torch.float64), values_from_numpy(
+        {"se2": poses}, device=dev, dtype=torch.float64)
+
+
+def _gnc_problem(dev):
+    """tests/test_shonan_gnc.py's GNC graph: 12 poses, a closure and two
+    outlier closures in the last batch."""
+    rng = np.random.default_rng(4)
+    n = 12
+    truth = [np.zeros(3)]
+    for _ in range(n - 1):
+        truth.append(se2.compose(torch.tensor(truth[-1]), torch.tensor(
+            [1.0, 0.0, 0.3])).numpy())
+    truth = np.stack(truth)
+    gb = GraphBuilder()
+    F.add_prior(gb, "se2", 0, truth[0], F.diag_noise([0.1, 0.1, 0.05]))
+    pri = gb.build(device=dev, dtype=torch.float64)
+    gb = GraphBuilder()
+    noise = F.diag_noise([0.05, 0.05, 0.02])
+    for i in range(n - 1):
+        F.add_between(gb, "se2", i, i + 1, se2.between(
+            torch.tensor(truth[i]), torch.tensor(truth[i + 1])).numpy()
+            + rng.normal(scale=0.005, size=3), noise)
+    F.add_between(gb, "se2", 0, n - 1, se2.between(
+        torch.tensor(truth[0]), torch.tensor(truth[-1])).numpy(), noise)
+    F.add_between(gb, "se2", 1, 8, np.array([5.0, -3.0, 1.5]), noise)
+    F.add_between(gb, "se2", 2, 9, np.array([-4.0, 2.0, -2.0]), noise)
+    graph = FactorGraph(pri.batches + gb.build(
+        device=dev, dtype=torch.float64).batches)
+    init = truth + rng.normal(scale=0.05, size=truth.shape)
+    return graph, values_from_numpy({"se2": init}, device=dev,
+                                    dtype=torch.float64)
+
+
+def _toy_constrained(dev):
+    """test_constrained_noise.py's toy: two r2 priors, a soft between, the
+    equality (x1 - x0)[0] = 3."""
+    def t(a):
+        return torch.tensor(np.asarray(a, dtype=np.float64), device=dev)
+
+    def ix(a):
+        return torch.tensor(a, device=dev)
+
+    prior = lambda xs, m: xs[0] - m["p"]
+    graph = FactorGraph([
+        FactorBatch("prior0", prior, ("r2",), 2, ix([[0]]),
+                    {"p": t([[1.0, 1.0]])}, NoiseModel("diag", t([[2.0,
+                                                                   2.0]]))),
+        FactorBatch("prior1", prior, ("r2",), 2, ix([[1]]),
+                    {"p": t([[-1.0, 0.0]])}, NoiseModel("diag", t([[2.0,
+                                                                    2.0]]))),
+        FactorBatch("soft", lambda xs, m: xs[1] - xs[0] - m["m"],
+                    ("r2", "r2"), 2, ix([[0, 1]]), {"m": t([[3.0, 0.0]])},
+                    NoiseModel("diag", t([[0.0, 2.0]])))])
+    cons = [FactorBatch("gap", lambda xs, m: (xs[1] - xs[0])[:1] - m["c"],
+                        ("r2", "r2"), 1, ix([[0, 1]]), {"c": t([[3.0]])},
+                        NoiseModel("unit"))]
+    return graph, cons, Values({"r2": t(np.zeros((2, 2)))})
+
+
+def _se2_stream(n, seed, step):
+    rng = np.random.default_rng(seed)
+    truth = [np.zeros(3)]
+    for _ in range(n - 1):
+        truth.append(se2.compose(torch.tensor(truth[-1]),
+                                 torch.tensor(step)).numpy())
+    truth = np.stack(truth)
+    meas = [None] + [se2.between(torch.tensor(truth[i - 1]), torch.tensor(
+        truth[i])).numpy() + rng.normal(scale=0.01, size=3)
+        for i in range(1, n)]
+    return truth, meas
+
+
+def _stream_step(i, m, dev):
+    gb = GraphBuilder()
+    if m is None:
+        F.add_prior(gb, "se2", 0, np.zeros(3), F.diag_noise([0.1, 0.1,
+                                                             0.05]))
+    else:
+        F.add_between(gb, "se2", i - 1, i, m, F.diag_noise([0.05, 0.05,
+                                                            0.02]))
+    return gb.build(device=dev, dtype=torch.float64).batches
+
+
+def _manhattan_stream(dev, n):
+    """An IncrementalSmoother (the runner's settings) fed an n-pose
+    Manhattan world's factors in the graph's order, as
+    tests/test_incremental_runner.py feeds city10000's."""
+    g, _, _ = manhattan.make_manhattan(n, seed=5, device="cpu",
+                                       dtype=torch.float64)
+    b = [x for x in g.batches if x.name == "between_se2"][0]
+    ij, meas = b.idx.numpy(), b.meas["measured"].numpy()
+    S = np.stack([np.diag(s) for s in b.noise.data.numpy()])
+    inc = IncrementalSmoother("se2", device=dev)
+    inc.set_prior(np.zeros(3), [0.3, 0.3, 0.1])
+    for k in range(len(ij)):
+        if ij[k, 1] == inc.n:
+            inc.add_pose(se2.compose(torch.tensor(inc._poses[ij[k, 0]]),
+                                     torch.tensor(meas[k])).numpy())
+        inc.add_between(int(ij[k, 0]), int(ij[k, 1]), meas[k], S[k])
+    return inc
+
+
+def _breadth_cases():
+    """name -> (fn(device) -> {key: numpy array}, tolerance): items 7-14 of
+    the nonlinear breadth on their parity tests' problems."""
+    def marginals_case(d):
+        g, v = _chain_problem(d)
+        return {"cov": marginals.all_marginal_covariances(g, v, "se2")
+                .cpu().numpy()}
+
+    def dogleg_case(d):
+        g, v = pose2_tool.build(d)
+        r = optimize_dogleg(g, v)
+        return {"values": r.values["se2"].cpu().numpy()}
+
+    def ncg_case(d):
+        g, v = pose2_tool.build(d)
+        r = optimize_ncg(g, v, optimizers.Params(max_iterations=200,
+                                                 relative_error_tol=1e-8))
+        return {"values": r.values["se2"].cpu().numpy(),
+                "error": np.array(r.error)}
+
+    def gnc_case(d):
+        g, v = _gnc_problem(d)
+        vals, w, _ = gnc.optimize_gnc(g, v, 1, gnc.GncParams())
+        return {"values": vals["se2"].cpu().numpy(), "weights": w}
+
+    def constrained_case(d):
+        out = {}
+        for method in ("penalty", "augmented_lagrangian"):
+            g, cons, v = _toy_constrained(d)
+            vals, _ = getattr(constrained, f"optimize_{method}")(g, v, cons)
+            out[method] = vals["r2"].cpu().numpy()
+        g, v = pose2_tool.build(d)
+        eq = constrained.nonlinear_equality("se2", 0, np.array(
+            [0.1, -0.2, 0.05]), device=d)
+        out["equality"] = optimizers.optimize_lm(FactorGraph(
+            g.batches[1:] + [eq]), v).values["se2"].cpu().numpy()
+        return out
+
+    def misc_case(d):
+        rng = np.random.default_rng(0)
+        A0, A1, b = rng.normal(size=(3, 3)), rng.normal(size=(3, 3)), \
+            rng.normal(size=3)
+        a0, a1 = rng.normal(size=3), rng.normal(size=3)
+        gb = GraphBuilder()
+        misc.add_linear_container(gb, ["r3", "r3"], [0, 1], [A0, A1], b,
+                                  [a0, a1])
+        F.add_prior(gb, "r3", 0, a0, F.diag_noise([1e-6] * 3))
+        lc = optimizers.optimize_gn(gb.build(device=d, dtype=torch.float64),
+                                    values_from_numpy({"r3": np.stack(
+                                        [a0, a1])}, device=d,
+                                        dtype=torch.float64),
+                                    optimizers.Params(max_iterations=5))
+        z = np.random.default_rng(1).normal(loc=2.5, scale=0.5, size=200)
+        gb = GraphBuilder()
+        for zk in z:
+            gb.add("white_noise", misc.white_noise_residual, ("r1", "r1"), 2,
+                   [0, 1], {"z": np.asarray(zk), "umax": np.log(1e8)},
+                   {"kind": "unit"})
+        wn = optimizers.optimize_lm(
+            gb.build(device=d, dtype=torch.float64),
+            values_from_numpy({"r1": np.zeros((2, 1))}, device=d,
+                              dtype=torch.float64),
+            optimizers.Params(max_iterations=300, relative_error_tol=1e-12,
+                              absolute_error_tol=1e-12))
+        return {"container": lc.values["r3"].cpu().numpy(),
+                "white_noise": wn.values["r1"].cpu().numpy()}
+
+    def fixed_lag_case(d):
+        truth, meas = _se2_stream(10, 3, [1.0, 0.0, 0.05])
+        sm = FixedLagSmoother(4.0, optimizers.Params(max_iterations=8))
+        for i, m in enumerate(meas):
+            sm.update(_stream_step(i, m, d), values_from_numpy(
+                {"se2": truth[: i + 1]}, device=d, dtype=torch.float64),
+                {("se2", i): float(i)})
+        return {"estimate": sm.estimate()["se2"].cpu().numpy()}
+
+    def incremental_case(d):
+        inc = _manhattan_stream(d, 300)
+        err = inc.solve(iters=8)
+        return {"estimate": inc.estimate(), "error": np.array(err)}
+
+    def concurrent_case(d):
+        truth, meas = _se2_stream(10, 0, [1.0, 0.0, 0.1])
+        cfs = ConcurrentFilterSmoother(4.0, 5, optimizers.Params(
+            max_iterations=5))
+        for i, m in enumerate(meas):
+            cfs.update(_stream_step(i, m, d), values_from_numpy(
+                {"se2": truth[: i + 1]}, device=d, dtype=torch.float64),
+                {("se2", i): float(i)})
+        cfs.run_smoother()
+        cfs.synchronize()
+        return {"smoothed": cfs.smoothed_estimate()["se2"].cpu().numpy(),
+                "filtered": cfs.filtered_estimate()["se2"].cpu().numpy()}
+
+    return {"marginals": (marginals_case, 1e-12),
+            "dogleg": (dogleg_case, 1e-9), "ncg": (ncg_case, 1e-8),
+            "gnc": (gnc_case, 1e-8), "constrained": (constrained_case, 1e-9),
+            "misc": (misc_case, 1e-9), "fixed_lag": (fixed_lag_case, 1e-8),
+            "incremental": (incremental_case, 1e-6),
+            "concurrent": (concurrent_case, 1e-8)}
+
+
+def phase_nonlinear_breadth(dev):
+    """Items 7-14 of the nonlinear breadth card == CPU in float64 on their
+    parity tests' problems, then the four data-free tools once on the
+    card."""
+    for name, (fn, tol) in _breadth_cases().items():
+        t0 = time.perf_counter()
+        c, h = fn(dev), fn(torch.device("cpu"))
+        gap = max(float(np.abs(np.asarray(c[k]) - np.asarray(h[k])).max())
+                  for k in c)
+        print(f"[20] {name}: max |card - CPU| {gap:.2e} (limit {tol:g}) "
+              f"over {', '.join(c)}; {_seconds_since(t0):.1f} s both")
+        if not gap <= tol:
+            raise RuntimeError(f"[20] {name}: card vs CPU {gap}")
+    for tool in (pose2_tool, fixed_lag_tool, ik_tool, tutorials_tool):
+        lines = []
+        t0 = time.perf_counter()
+        rec = tool.run(device=dev, say=lines.append)
+        name = tool.__name__.rsplit(".", 1)[1]
+        ok = rec.get("ok", True) if isinstance(rec, dict) else True
+        print(f"[20] tools/{name}.py on the card: "
+              f"{_seconds_since(t0):.1f} s; last line {lines[-1]!r}")
+        if not ok:
+            raise RuntimeError(f"[20] tools/{name}.py failed its check")
+
+
+def breadth_child(tmp):
+    """Phases 19 (its card == CPU part and a record) and 20 in a fourth
+    process: they time nothing."""
+    torch.set_num_threads(2)
+    dev = config.device("cuda")
+    phase_shonan_parity(dev, tmp)
+    phase_nonlinear_breadth(dev)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1884,10 +2375,15 @@ def main():
     clock(13)
     tangent_record, rotation_record, rotation_launches = phase_preint(dev)
     clock(14)
-    # the kernels are timed: phases 9 and 15 (parity, untimed) and phase
-    # 18's full-size stream run in two more processes beside 16 and 17
     with tempfile.TemporaryDirectory() as tmp:
-        children = [start_child("smart", tmp), start_child("parity", tmp)]
+        phase_shonan(dev, tmp)
+    clock(19)
+    # the kernels are timed: phases 9 and 15 (parity, untimed), phase 18's
+    # full-size stream, and phase 19's parity with phase 20 run in three
+    # more processes beside 16 and 17
+    with tempfile.TemporaryDirectory() as tmp:
+        children = [start_child("smart", tmp), start_child("parity", tmp),
+                    start_child("breadth", tmp)]
         try:
             phase_vio_batch(dev, tmp)
             clock(16)
@@ -1897,6 +2393,8 @@ def main():
             clock(18)
             join_child(children[1])
             clock("9 and 15")
+            join_child(children[2])
+            clock("19 (card == CPU) and 20")
         finally:
             for _, proc, _ in children:
                 if proc.poll() is None:
@@ -1935,6 +2433,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         if sys.argv[2] == "smart":
             smart_stream_child(f"{sys.argv[3]}/smart_stream.json")
+        elif sys.argv[2] == "breadth":
+            breadth_child(sys.argv[3])
         else:
             parity_child(sys.argv[3])
     else:

@@ -8,7 +8,12 @@ block solve as a hand-written CUDA kernel (`ops/block_solve.py`,
 pose-graph SLAM from g2o/TORO files (`tools/pose_graph_g2o.py` over
 `slam/dataset.py` and `slam/initialize.py`) with the factor library of
 `slam/factors.py` and `slam/unstable.py`, the ISAM2 stream
-(`nonlinear/isam2.py`) and checkpointing (`utils/serialization.py`).
+(`nonlinear/isam2.py`), checkpointing (`utils/serialization.py`),
+inertial navigation (`navigation/`) and smart factors (`sfm/smart.py`),
+Shonan rotation averaging (`sfm/shonan.py` over `geometry/son.py`) with
+translation averaging (`sfm/averaging.py`), and the nonlinear breadth
+(`nonlinear/{marginals,dogleg,gnc,constrained,misc,fixed_lag,incremental,
+concurrent}.py`).
 The JAX package `gtsam_personal_tpu` is the
 reference it is tested against; this package imports torch and never jax.
 

@@ -73,7 +73,7 @@ def _check_supported(params: Params, plan):
     if params.solver in ("qr", "sequential"):
         raise NotImplementedError(
             f"solver {params.solver!r}: linear/conditional.py is not ported "
-            "(ROADMAP queue 1 item 10.5)")
+            "(ROADMAP queue 1 item 3)")
     if params.solver not in ("dense", "pcg", "schur"):
         raise ValueError(f"unknown solver {params.solver!r}")
     if params.solver == "schur" and not isinstance(plan, SchurPlan):
@@ -82,7 +82,7 @@ def _check_supported(params: Params, plan):
         raise NotImplementedError(
             f"a plan of type {type(plan).__name__}: only linear/schur.py's "
             "SchurPlan is ported; the multi-level plan of linear/mlschur.py "
-            "is ROADMAP queue 1 item 10.5")
+            "is ROADMAP queue 1 item 3")
 
 
 def _solve(lin, layout, lam, diag_damping, params: Params, plan):
