@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Phases, numbered as in the order they were added; any failure raises and
-the script exits non-zero. They run in this order: 1-8, 10-14, 19, then 16
-and 17 beside three more processes of this script (`--child parity TMP`:
-phases 9 and 15, which time nothing; `--child smart TMP`: phase 18's
+the script exits non-zero. They run in this order: 1-8, 10-14, 19, 21,
+then 16 and 17 beside four more processes of this script (`--child parity
+TMP`: phases 9 and 15, which time nothing; `--child smart TMP`: phase 18's
 full-size stream; `--child breadth TMP`: phase 19's card == CPU checks and
-phase 20, which time nothing), then the rest of 18; the kernels are timed
-before the other processes start or after they end:
+phases 20 and 22's card == CPU checks, which time nothing; `--child
+comparer TMP`: phase 22's solver_comparer run), then the rest of 18; the
+kernels are timed before the other processes start or after they end:
   1. require CUDA (there is no CPU fallback) and print the card's name and
      power limit as nvidia-smi reports them;
   2. build the CUDA kernel from csrc/ with nvcc for sm_90a (set-up time);
@@ -175,7 +176,33 @@ before the other processes start or after they end:
      factors, the fixed-lag smoother, the incremental smoother on a
      300-pose Manhattan stream, the concurrent filter and smoother), then
      tools/{pose2_slam_example,fixed_lag_smoother,inverse_kinematics,
-     tutorials}.py once each on the card.
+     tutorials}.py once each on the card;
+ 21. the multi-level Schur solver (linear/mlschur.py) on phase 7's graph:
+     make_ml_plan(max_part_size=256) (host seconds; gate: its stats equal
+     the JAX plan's, 3 levels, parts [48, 7, 5], Dmax [768, 624, 681],
+     sdmax [1212, 2391, 2388], root 5769); one solve_ml against
+     solve_partitioned at lambda 1e-3 (gate in float64: max |difference|
+     <= 1e-9 max |step|; float32 printed), each one's ms a call by CUDA
+     events around 10 calls after a warm-up, one solve_ml's split by stage
+     and the peaks; phase 7's LM run with the MLPlan in float32 and
+     float64 (phase 7's gates, and the float64 error equal to phase 7's
+     within 1e-9 relative; it/s beside phase 7's); SPCG in float64
+     (linear/subgraph.py, cap 200, tolerance 1e-8) at full size (a 30000 x
+     30000 dense tree system; its iterations and gap to solve_partitioned
+     printed; gate: finite and closer than block-Jacobi PCG at the same
+     cap) and at 300 poses (gate: converged inside the cap, within 1e-6 of
+     solve_partitioned);
+     optimize_lm with solver "sequential" and "qr" against "schur" on a
+     2000-pose graph in float64 (gate: the same error to 1e-9 relative);
+ 22. the linear breadth card == CPU in float64 on the parity tests'
+     problems (sequential elimination and the Bayes net's solves, the
+     equality-constrained solve, the diagnosis, solve_ml on a 4-level and
+     a 0-level plan, SPCG, the Kalman filters, the samplers' deterministic
+     parts, the QP on card tensors); in its own process,
+     tools/solver_comparer.py on the card on a 2000-pose file of
+     write_g2o_2d, every solver and the incremental stream (gates: the
+     direct solvers agree to 1e-6 in their parameters; a second run's
+     snapshot is within 1e-6 of the first's).
 
 The last two lines are a JSON record of the kernels ({"kernels": [...]},
 each with the launch count from its main path, named in its
@@ -196,10 +223,13 @@ import torch
 from gtsam_personal_tpu_torch import config, native
 from gtsam_personal_tpu_torch.core.graph import (FactorBatch, FactorGraph,
                                                  GraphBuilder)
-from gtsam_personal_tpu_torch.core.values import (Layout, Values,
+from gtsam_personal_tpu_torch.core.values import (Layout, Values, tree_vdot,
                                                   values_from_numpy)
 from gtsam_personal_tpu_torch.geometry import se2, se3, so3
-from gtsam_personal_tpu_torch.linear import schur, solvers
+from gtsam_personal_tpu_torch.linear import (conditional, diagnostics, kalman,
+                                             lpqp, mlschur, sampler, schur,
+                                             solvers, subgraph)
+from gtsam_personal_tpu_torch.linear import noise as noise_mod
 from gtsam_personal_tpu_torch.linear.linearize import (linearize,
                                                        linearize_batch)
 from gtsam_personal_tpu_torch.linear.noise import NoiseModel
@@ -230,6 +260,7 @@ from gtsam_personal_tpu_torch.tools import imu_gps_vio as vio
 from gtsam_personal_tpu_torch.tools import inverse_kinematics as ik_tool
 from gtsam_personal_tpu_torch.tools import pose2_slam_example as pose2_tool
 from gtsam_personal_tpu_torch.tools import shonan_averaging_cli as shonan_cli
+from gtsam_personal_tpu_torch.tools import solver_comparer as comparer_tool
 from gtsam_personal_tpu_torch.tools import tutorials as tutorials_tool
 from gtsam_personal_tpu_torch.tools import isam2_smart_factor as smart_tool
 from gtsam_personal_tpu_torch.utils import serialization
@@ -375,11 +406,11 @@ def _blocks(P, lam, dtype, dev, seed):
     return d(H.reshape(P, 9).T), d(t), d(lam)
 
 
-def _time_ms(fn, n=200):
-    """Mean milliseconds per call over n calls, by CUDA events: for a
-    kernel of a few microseconds this is the host's launch path, not the
-    kernel."""
-    for _ in range(10):
+def _time_ms(fn, n=200, warmup=10):
+    """Mean milliseconds per call over n calls after `warmup` calls, by
+    CUDA events: for a kernel of a few microseconds this is the host's
+    launch path, not the kernel."""
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -671,7 +702,8 @@ def phase_se3_parity(dev):
 
 def phase_pose_main(dev):
     """Batch LM on the 10000-pose graph under its gates; returns the final
-    float64 error, the batch optimum that phase 10 is held to."""
+    float64 error, the batch optimum that phase 10 is held to, and the it/s
+    of the three timed runs by dtype name."""
     n, part, lam0, iters = POSE_N, POSE_PART, POSE_LAM0, POSE_ITERS
     runs = {}
     for dtype in (torch.float32, torch.float64):
@@ -702,7 +734,8 @@ def phase_pose_main(dev):
         launches = landmark_block_solve.launches
         ate0, ate = (metrics.ate(x["se2"][:, :2].cpu().numpy(),
                                  truth[:, :2])["rmse"] for x in (initial, v))
-        runs[name] = (float(err0), float(err), ate)
+        runs[name] = (float(err0), float(err), ate,
+                      [iters / dt for dt in dts[1:]])
         print(f"[7] {name}: error {float(err0):.6g} -> {float(err):.6g}, "
               f"lambda {float(lam):g}, ATE rmse {ate0:.2f} m -> {ate:.4f} m")
         print(f"[7] {name}: warm-up run of {iters} LM iterations "
@@ -715,8 +748,8 @@ def phase_pose_main(dev):
               f"no hand-written kernel: its JAX counterpart has no Pallas "
               f"kernel)")
         del graph, initial, plan, v
-    e0, e32, ate32 = runs["float32"]
-    _, e64, ate64 = runs["float64"]
+    e0, e32, ate32, _ = runs["float32"]
+    _, e64, ate64, _ = runs["float64"]
     if not np.isfinite(e32):
         raise RuntimeError(f"gate: non-finite pose-graph error {e32}")
     if not e32 < e0:
@@ -730,7 +763,7 @@ def phase_pose_main(dev):
     print(f"[7] gates passed: float32 vs float64 error rel "
           f"{abs(e32 - e64) / abs(e64):.2e} (< 1e-3), ATE rmse "
           f"{ate32:.4f} m (< 0.5; float64 {ate64:.4f} m)")
-    return e64
+    return e64, {name: r[3] for name, r in runs.items()}
 
 
 def _harvest(graph, values, group):
@@ -1779,7 +1812,9 @@ def parity_child(tmp):
 
 CHILDREN = {"smart": "phase 18's full-size stream",
             "parity": "phases 9 and 15",
-            "breadth": "phase 19's card == CPU checks and phase 20"}
+            "breadth": "phase 19's card == CPU checks and phases 20 and "
+                       "22",
+            "comparer": "phase 22's tools/solver_comparer.py run"}
 
 
 def start_child(kind, tmp):
@@ -2334,13 +2369,452 @@ def phase_nonlinear_breadth(dev):
             raise RuntimeError(f"[20] tools/{name}.py failed its check")
 
 
+# --- phases 21-22: the linear-solver breadth ---------------------------------
+
+ML_STATS = {"levels": 3, "parts": [48, 7, 5], "Dmax": [768, 624, 681],
+            "sdmax": [1212, 2391, 2388], "root_dim": 5769}
+ML_LAM = 1e-3
+SPCG_MAXITER, SPCG_TOL = 200, 1e-8
+SEQ_N = 2000            # poses of the sequential / QR comparison
+SPCG_N = 300            # poses where SPCG converges inside its cap
+
+
+def _rel_gap(a, b):
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _ml_split_ms(lin, plan, lam):
+    """Milliseconds of one solve_ml by stage, CUDA events between the
+    stages: assembly, each level's upward step, the root, the downward
+    sweep."""
+    lam = torch.as_tensor(lam, dtype=lin.batches[0].r.dtype,
+                          device=lin.batches[0].r.device)
+    events, names = [torch.cuda.Event(enable_timing=True)], []
+
+    def mark(name):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        names.append(name)
+    torch.cuda.synchronize()
+    events[0].record()
+    fronts, rhs, root_sys, root_rhs = mlschur.assemble(lin, plan)
+    mark("assembly")
+    ys, Ws = [], []
+    for lv in range(plan.L):
+        y, W = mlschur.eliminate_level(lv, fronts, rhs, root_sys, root_rhs,
+                                       plan, lam)
+        ys.append(y)
+        Ws.append(W)
+        mark(f"level {lv}")
+    sol = mlschur.solve_root(root_sys, root_rhs, plan, lam)
+    mark("root")
+    mlschur.back_substitute(sol, ys, Ws, plan)
+    mark("downward")
+    torch.cuda.synchronize()
+    return {n: events[i].elapsed_time(events[i + 1])
+            for i, n in enumerate(names)}
+
+
+def _peak_of(fn):
+    """Peak device MiB allocated during fn() above what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def _ml_solves(name, lin, plan, plan2):
+    """solve_ml against solve_partitioned at lambda ML_LAM: their gap, each
+    one's ms a call (CUDA events around 10 calls after a warm-up), the
+    split of one solve_ml and the peaks; returns (gap, two-level step)."""
+    d_ml = mlschur.solve_ml(lin, plan, ML_LAM)["se2"]
+    d_2 = schur.solve_partitioned(lin, plan2, ML_LAM)["se2"]
+    gap = _rel_gap(d_ml, d_2)
+    ms_ml = _time_ms(lambda: mlschur.solve_ml(lin, plan, ML_LAM), 10, 1)
+    ms_2 = _time_ms(lambda: schur.solve_partitioned(lin, plan2, ML_LAM),
+                    10, 1)
+    split = _ml_split_ms(lin, plan, ML_LAM)
+    peak_ml = _peak_of(lambda: mlschur.solve_ml(lin, plan, ML_LAM))
+    peak_2 = _peak_of(lambda: schur.solve_partitioned(lin, plan2, ML_LAM))
+    print(f"[21] {name}, lambda {ML_LAM:g}: max |solve_ml - "
+          f"solve_partitioned| / max |step| = {gap:.3e}; solve_ml "
+          f"{ms_ml:.3f} ms a call, solve_partitioned {ms_2:.3f} ms "
+          f"(CUDA events around 10 calls after a warm-up; ratio "
+          f"{ms_ml / ms_2:.3f}); one solve_ml by stage: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f" ms; peak above the linearization {peak_ml:.0f} MiB (two-level"
+          f" {peak_2:.0f} MiB)")
+    return gap, d_2
+
+
+def _ml_lm(name, graph, initial, truth, plan, two_level_its):
+    """Phase 7's LM run with the MLPlan: (err0, err, ATE)."""
+    dts = []
+    for _ in range(4):          # a warm-up run, then three timed runs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, lam, err, err0 = _pose_graph_run(graph, initial, plan, POSE_LAM0,
+                                            POSE_ITERS)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    ate = metrics.ate(v["se2"][:, :2].cpu().numpy(), truth[:, :2])["rmse"]
+    print(f"[21] {name}: lm_run with the MLPlan, error {float(err0):.6g} -> "
+          f"{float(err):.10g}, lambda {float(lam):g}, ATE rmse {ate:.4f} m; "
+          f"warm-up {dts[0]:.3f} s, then "
+          + ", ".join(f"{POSE_ITERS / dt:.3f}" for dt in dts[1:])
+          + " it/s (phase 7's two-level plan: "
+          + ", ".join(f"{x:.3f}" for x in two_level_its[name]) + ")")
+    return float(err0), float(err), ate
+
+
+def _spcg(graph, initial, lin, d_2, label):
+    """SPCG (linear/subgraph.py) in float64 at lambda ML_LAM, cap
+    SPCG_MAXITER, tolerance SPCG_TOL; returns (PCG iterations, its
+    relative gap to the two-level step d_2, block-Jacobi PCG's gap at the
+    same cap)."""
+    layout = Layout.of(initial)
+    D = layout.total_dim
+    need = 3 * D * D * 8            # H, its factor, the NaN-masked factor
+    free = torch.cuda.mem_get_info()[0]
+    print(f"[21] SPCG, {label}: the dense tree system is {D} x {D} "
+          f"float64, {D * D * 8 / 1e9:.2f} GB; the factorization holds "
+          f"about {need / 1e9:.1f} GB at its peak, {free / 1e9:.1f} GB free")
+    if need > free:
+        raise RuntimeError(f"[21] SPCG needs {need} bytes, {free} free")
+    dev = initial["se2"].device
+    masks, t_sel = _timed(lambda: subgraph.build_spanning_tree_selection(
+        graph.batches, initial.counts()), "cpu")
+    precond, t_fac = _timed(lambda: subgraph.SubgraphPreconditioner(
+        lin, masks, layout, ML_LAM), dev)
+    b = {g: -x for g, x in lin.gradient_at_zero().items()}
+    threshold = (SPCG_TOL * torch.sqrt(tree_vdot(b, b))) ** 2
+    (x, used), t_pcg = _timed(lambda: solvers.pcg_loop(
+        solvers.make_damped_matvec(lin, ML_LAM, None), precond.apply,
+        {g: torch.zeros_like(v) for g, v in b.items()}, b, threshold,
+        SPCG_MAXITER), dev)
+    del precond
+    d, t_all = _timed(lambda: subgraph.solve_spcg(
+        lin, masks, layout, lam=ML_LAM, maxiter=SPCG_MAXITER,
+        tol=SPCG_TOL)["se2"], dev)
+    jacobi = solvers.solve_pcg(lin, ML_LAM, maxiter=SPCG_MAXITER,
+                               tol=SPCG_TOL)["se2"]
+    used, gap, gap_j = int(used), _rel_gap(d, d_2), _rel_gap(jacobi, d_2)
+    print(f"[21] SPCG, {label}: {sum(int(m.sum()) for m in masks)} tree "
+          f"factors of {graph.num_factors}; tree selection {t_sel:.2f} s "
+          f"(host), factor {t_fac:.3f} s, {used} PCG iterations (cap "
+          f"{SPCG_MAXITER}, tolerance {SPCG_TOL:g}) in {t_pcg:.3f} s; "
+          f"solve_spcg whole {t_all:.3f} s; max |spcg - partitioned| / max "
+          f"|step| = {gap:.3e}, block-Jacobi PCG at the same cap "
+          f"{gap_j:.3e}; |solve_spcg - the loop| "
+          f"{float((d - x['se2']).abs().max()):.1e}")
+    if not (torch.isfinite(d).all() and gap < gap_j):
+        raise RuntimeError(f"gate: [21] SPCG {label}: gap {gap}, "
+                           f"block-Jacobi's {gap_j}")
+    return used, gap
+
+
+def _spcg_converged(dev):
+    """SPCG at SPCG_N poses, where its cap suffices: gate, converged
+    inside the cap and within 1e-6 of solve_partitioned."""
+    graph, initial, _ = manhattan.make_manhattan(SPCG_N, seed=42, device=dev,
+                                                 dtype=torch.float64)
+    lin = linearize(graph, initial)
+    d_2 = schur.solve_partitioned(lin, schur.make_plan(
+        graph, initial.counts(), max_part_size=POSE_PART), ML_LAM)["se2"]
+    used, gap = _spcg(graph, initial, lin, d_2, f"{SPCG_N} poses")
+    if not (used < SPCG_MAXITER and gap <= 1e-6):
+        raise RuntimeError(f"gate: [21] SPCG at {SPCG_N} poses: {used} "
+                           f"iterations, gap {gap}")
+
+
+def _sequential_qr(dev):
+    """optimize_lm with solver "schur", "sequential" and "qr" in float64 on
+    the SEQ_N-pose graph: the same final error (1e-9 relative)."""
+    graph, initial, _ = manhattan.make_manhattan(SEQ_N, seed=42, device=dev,
+                                                 dtype=torch.float64)
+    plan = schur.make_plan(graph, initial.counts(), max_part_size=POSE_PART)
+    res = {}
+    for solver in ("schur", "sequential", "qr"):
+        r, dt = _timed(lambda: optimizers.optimize_lm(
+            graph, initial, optimizers.Params(solver=solver),
+            plan=plan if solver == "schur" else None), dev)
+        res[solver] = r
+        print(f"[21] {SEQ_N} poses, float64, optimize_lm solver={solver}: "
+              f"error {r.error:.12g} in {r.iterations} iterations, "
+              f"{dt:.3f} s")
+    e = res["schur"].error
+    for solver in ("sequential", "qr"):
+        if not abs(res[solver].error - e) <= 1e-9 * e:
+            raise RuntimeError(f"gate: [21] {solver} error "
+                               f"{res[solver].error} vs schur {e}")
+
+
+def phase_ml(dev, two_level_e64, two_level_its):
+    """The multi-level Schur solver on phase 7's graph: plan, solves, LM;
+    SPCG at full size; sequential and QR elimination at SEQ_N poses."""
+    n, counts = POSE_N, {"se2": POSE_N}
+    runs = {}
+    plan = plan2 = None
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        graph, initial, truth = manhattan.make_manhattan(
+            n, seed=42, device=dev, dtype=dtype)
+        if plan is None:            # the plans hold structure only
+            t0 = time.perf_counter()
+            plan = mlschur.make_ml_plan(graph, counts, max_part_size=POSE_PART)
+            t_plan = time.perf_counter() - t0
+            plan2 = schur.make_plan(graph, counts, max_part_size=POSE_PART)
+            print(f"[21] MLPlan of phase 7's graph (parts <= {POSE_PART}) "
+                  f"built on the host in {t_plan:.2f} s: {plan.stats()}")
+            if plan.stats() != ML_STATS:
+                raise RuntimeError(f"gate: [21] plan stats {plan.stats()} "
+                                   f"!= the JAX plan's {ML_STATS}")
+        lin = linearize(graph, initial)
+        gap, d_2 = _ml_solves(name, lin, plan, plan2)
+        if dtype == torch.float64 and not gap <= 1e-9:
+            raise RuntimeError(f"gate: [21] float64 solve_ml vs "
+                               f"solve_partitioned {gap}")
+        runs[name] = _ml_lm(name, graph, initial, truth, plan, two_level_its)
+        if dtype == torch.float64:
+            # a record: the iterations grow with the loops (146, 378 and
+            # 1789 at 300, 600 and 2000 poses on the CPU), so the cap
+            # leaves it unconverged here; gated: finite, closer than
+            # block-Jacobi PCG at the same cap
+            _spcg(graph, initial, lin, d_2, f"{n} poses")
+        del graph, initial, lin, d_2
+        torch.cuda.empty_cache()
+    e0, e32, ate32 = runs["float32"]
+    _, e64, _ = runs["float64"]
+    if not (np.isfinite(e32) and e32 < e0):
+        raise RuntimeError(f"gate: [21] error {e0} -> {e32}")
+    if not abs(e32 - e64) <= 1e-3 * abs(e64):
+        raise RuntimeError(f"gate: [21] float32 {e32} vs float64 {e64}")
+    if not ate32 < 0.5:
+        raise RuntimeError(f"gate: [21] ATE rmse {ate32:.4f} m >= 0.5 m")
+    if not abs(e64 - two_level_e64) <= 1e-9 * two_level_e64:
+        raise RuntimeError(f"gate: [21] float64 error {e64} vs the two-level "
+                           f"{two_level_e64}")
+    print(f"[21] gates passed: stats, float64 solve gap, LM (float32 vs "
+          f"float64 rel {abs(e32 - e64) / abs(e64):.2e}, ATE {ate32:.4f} m, "
+          f"float64 vs phase 7's two-level error rel "
+          f"{abs(e64 - two_level_e64) / two_level_e64:.2e}), SPCG")
+    _spcg_converged(dev)
+    _sequential_qr(dev)
+
+
+def _toy_equality(dev):
+    """tests/test_constrained_noise.py's toy: soft priors and a between
+    factor whose first row is an exact constraint."""
+    def t(a):
+        return torch.tensor(np.asarray(a, dtype=np.float64), device=dev)
+    prior = lambda xs, m: xs[0] - m["p"]
+    ix = lambda a: torch.tensor(a, device=dev)
+    return FactorGraph([
+        FactorBatch("prior0", prior, ("r2",), 2, ix([[0]]),
+                    {"p": t([[1.0, 1.0]])}, NoiseModel("diag", t([2.0, 2.0]))),
+        FactorBatch("prior1", prior, ("r2",), 2, ix([[1]]),
+                    {"p": t([[-1.0, 0.0]])}, NoiseModel("diag",
+                                                        t([2.0, 2.0]))),
+        FactorBatch("between01", lambda xs, m: (xs[1] - xs[0]) - m["m"],
+                    ("r2", "r2"), 2, ix([[0, 1]]), {"m": t([[3.0, 0.0]])},
+                    noise_mod.constrained_sigmas([0.0, 0.5], device=dev,
+                                                 dtype=torch.float64))]), \
+        Values({"r2": t(np.zeros((2, 2)))})
+
+
+def _linear_cases():
+    """name -> (fn(device) -> {key: numpy array}, tolerance): the Part B
+    modules on their parity tests' problems, in float64."""
+    f64 = torch.float64
+
+    def host(d):
+        return {k: np.asarray(v.detach().cpu().numpy()
+                              if isinstance(v, torch.Tensor) else v)
+                for k, v in d.items()}
+
+    def conditional_case(d):
+        g, v, _ = manhattan.make_manhattan(100, seed=3, device=d, dtype=f64)
+        lin, layout = linearize(g, v), Layout.of(v)
+        ch = conditional.eliminate_sequential(lin, layout, lam=1e-6)
+        qr = conditional.eliminate_sequential(lin, layout, lam=1e-6,
+                                              method="qr")
+        rng = np.random.default_rng(0)
+        rhs = {"se2": torch.tensor(rng.normal(size=(100, 3)), device=d)}
+        eps = torch.tensor(rng.normal(size=300), device=d)
+        return host({
+            "R_chol": ch.Rmat, "R_qr": qr.Rmat, "d_chol": ch.dvec,
+            "d_qr": qr.dvec, "optimize": ch.optimize()["se2"],
+            "qr_optimize": qr.optimize()["se2"],
+            "gradient_search": ch.optimize_gradient_search()["se2"],
+            "back_substitute": ch.back_substitute(rhs)["se2"],
+            "back_substitute_transpose":
+                ch.back_substitute_transpose(rhs)["se2"],
+            "stepwise": ch.optimize_stepwise()["se2"],
+            "log_determinant": ch.log_determinant(),
+            "sample": ch.sample_from(eps)["se2"]})
+
+    def equality_case(d):
+        g, v = _toy_equality(d)
+        layout = Layout.of(v)
+        lin, E, e = conditional.split_constrained(g, v, layout)
+        return host({"E": E, "e": e, "x": conditional.
+                     solve_equality_constrained(lin, layout, E, e)["r2"]})
+
+    def diagnostics_case(d):
+        out = {}
+        for label, meas in (("orphan", 1.0), ("nan", float("nan"))):
+            gb = GraphBuilder()
+            F.add_prior(gb, "se2", 0, np.zeros(3), F.diag_noise([1.0] * 3))
+            for i in range(3):
+                F.add_between(gb, "se2", i, i + 1, np.array([meas, 0, 0]),
+                              F.diag_noise([0.1, 0.1, 0.05]))
+            vals = np.random.default_rng(0).normal(scale=0.1, size=(5, 3))
+            rep = diagnostics.diagnose(gb.build(device=d, dtype=f64),
+                                       values_from_numpy({"se2": vals},
+                                                         device=d,
+                                                         dtype=f64))
+            out[f"{label}_rows"] = [r for _, r in rep.nonfinite_factors]
+            out[f"{label}_vars"] = [i for _, i, _ in rep.singular_variables]
+            out[f"{label}_eigs"] = [e for *_, e in rep.singular_variables]
+            out[f"{label}_min"] = rep.min_block_eig
+        return host(out)
+
+    def mlschur_case(d):
+        g, v, _ = manhattan.make_manhattan(300, seed=3, device=d, dtype=f64)
+        lin = linearize(g, v)
+        out = {}
+        for label, args in (("four_levels", (12, 24, 5)),
+                            ("all_root", (64, 10 ** 6, 4))):
+            plan = mlschur.make_ml_plan(g, v.counts(), *args)
+            if plan.L != (4 if label == "four_levels" else 0):
+                raise RuntimeError(f"[22] {label}: {plan.stats()}")
+            out[label] = mlschur.solve_ml(lin, plan, 1e-3)["se2"]
+        return host(out)
+
+    def spcg_case(d):
+        g, v, _ = manhattan.make_manhattan(100, seed=3, device=d, dtype=f64)
+        masks = subgraph.build_spanning_tree_selection(g.batches, v.counts())
+        return host({"x": subgraph.solve_spcg(
+            linearize(g, v), masks, Layout.of(v), lam=1e-6, maxiter=300,
+            tol=1e-12)["se2"]})
+
+    def kalman_case(d):
+        def t(a):
+            return torch.tensor(np.asarray(a, dtype=np.float64), device=d)
+        eye = np.eye(2)
+        final, means = kalman.kf_run(
+            kalman.GaussianState(t(np.zeros(2)), t(0.01 * eye)), t(eye),
+            t(eye), t(0.01 * eye), t(eye), t(0.0625 * eye),
+            t(np.tile([1.0, 0.0], (3, 1))), t([[1.0, 0], [2.0, 0],
+                                               [3.0, 0]]))
+        ekf = kalman.ExtendedKalmanFilter("se2", t([0.1, -0.2, 0.3]),
+                                          t(0.1 * np.eye(3)))
+        for z in np.random.default_rng(4).normal(size=(5, 2)):
+            ekf.predict(lambda x: se2.compose(x, t([1.0, 0.1, 0.2])),
+                        t(np.diag([0.01, 0.01, 0.004])))
+            ekf.update(lambda x: x[:2], t(z), t(0.05 * eye))
+        return host({"kf_mean": final.mean, "kf_cov": final.cov,
+                     "kf_means": means, "ekf_mean": ekf.state.mean,
+                     "ekf_cov": ekf.state.cov})
+
+    def sampler_case(d):
+        rng = np.random.default_rng(5)
+        model = noise_mod.covariance([[2.0, 0.5], [0.5, 1.0]], device=d,
+                                     dtype=f64)
+        z = torch.tensor(rng.normal(size=(1000, 2)), device=d)
+        w = torch.tensor([0.01, 0.01, 10.0, 0.01, 3.0], device=d)
+        u = torch.tensor(rng.uniform(1e-12, 1.0, size=5), device=d)
+        return host({"noise": sampler.noise_from_standard(model, z),
+                     "order": sampler.weighted_keys_order(w, u, 5)})
+
+    def lpqp_case(d):
+        A_in = torch.tensor([[1.0, 1.0]], device=d, dtype=f64)
+        res = lpqp.solve_qp(2 * torch.eye(2, device=d, dtype=f64),
+                            torch.tensor([-4.0, -4.0], device=d), A_in=A_in,
+                            b_in=torch.tensor([2.0], device=d))
+        return {"x": res.x}
+
+    return {"conditional": (conditional_case, 1e-9),
+            "equality": (equality_case, 1e-12),
+            "diagnostics": (diagnostics_case, 1e-9),
+            "mlschur": (mlschur_case, 1e-9), "spcg": (spcg_case, 1e-9),
+            "kalman": (kalman_case, 1e-12), "sampler": (sampler_case, 1e-12),
+            "lpqp": (lpqp_case, 0.0)}
+
+
+def phase_linear_breadth(dev):
+    """The linear breadth card == CPU in float64 on the parity tests'
+    problems."""
+    def gap_of(a, b):
+        """max |a - b| where NaN == NaN (the diagnosis reports NaN
+        eigenvalues); infinite where only one side is NaN."""
+        a, b = np.asarray(a, dtype=np.float64), np.asarray(b, np.float64)
+        na, nb = np.isnan(a), np.isnan(b)
+        if (na != nb).any():
+            return float("inf")
+        d = np.abs(a - b)[~na]
+        return float(d.max()) if d.size else 0.0
+
+    for name, (fn, tol) in _linear_cases().items():
+        t0 = time.perf_counter()
+        c, h = fn(dev), fn(torch.device("cpu"))
+        gap = max(gap_of(c[k], h[k]) for k in c)
+        print(f"[22] {name}: max |card - CPU| {gap:.2e} (limit {tol:g}) "
+              f"over {', '.join(c)}; {_seconds_since(t0):.1f} s both")
+        if not gap <= tol:
+            raise RuntimeError(f"[22] {name}: card vs CPU {gap}")
+
+
+def phase_solver_comparer(dev, tmp):
+    """tools/solver_comparer.py on the card on a SEQ_N-pose file of
+    write_g2o_2d: every solver and the incremental stream, then a second
+    run's snapshot against the first's."""
+    graph, values, _ = manhattan.make_manhattan(SEQ_N, seed=42, device=dev,
+                                                dtype=torch.float64)
+    path, snap_a, snap_b = (f"{tmp}/m{SEQ_N}.g2o", f"{tmp}/A", f"{tmp}/B")
+    dataset.write_g2o_2d(path, values, graph)
+    lines = []
+    t0 = time.perf_counter()
+    rec = comparer_tool.run(path, solvers="dense,schur,pcg,qr,sequential",
+                            with_incremental=True, snapshot=snap_a,
+                            device=dev, say=lines.append)
+    comparer_tool.run(path, solvers="sequential", snapshot=snap_b,
+                      device=dev, say=lines.append)
+    diff = comparer_tool.compare(snap_a, snap_b, say=lines.append)["se2"][0]
+    for line in lines:
+        print(f"[22] solver_comparer: {line}")
+    direct = max(rec["diffs"][s] for s in ("schur", "qr", "sequential"))
+    print(f"[22] tools/solver_comparer.py on the card, {SEQ_N} poses: "
+          f"{_seconds_since(t0):.1f} s; direct solvers' max parameter "
+          f"difference {direct:.2e} (limit 1e-6), snapshots A (best: "
+          f"{rec['best']}) vs B max |diff| {diff:.2e} (limit 1e-6)")
+    if not direct <= 1e-6:
+        raise RuntimeError(f"gate: [22] direct solvers differ by {direct}")
+    if not diff <= 1e-6:
+        raise RuntimeError(f"gate: [22] snapshots differ by {diff}")
+
+
 def breadth_child(tmp):
-    """Phases 19 (its card == CPU part and a record) and 20 in a fourth
-    process: they time nothing."""
+    """Phases 19 (its card == CPU part and a record), 20 and 22 in a fourth
+    process: they time nothing that is gated."""
     torch.set_num_threads(2)
     dev = config.device("cuda")
     phase_shonan_parity(dev, tmp)
     phase_nonlinear_breadth(dev)
+    phase_linear_breadth(dev)
+
+
+def comparer_child(tmp):
+    """Phase 22's solver_comparer run in a fifth process: its incremental
+    stream (an ISAM2 update a measurement, 3380 of them) takes minutes of
+    host-bound updates, which beside phases 16-18 cost no wall time. One
+    CPU thread."""
+    torch.set_num_threads(1)
+    phase_solver_comparer(config.device("cuda"), tmp)
 
 
 def main():
@@ -2363,7 +2837,7 @@ def main():
     launches = phase_main(dev)
     phase_pose_parity(dev)
     phase_se3_parity(dev)
-    batch_optimum = phase_pose_main(dev)
+    batch_optimum, pose_its = phase_pose_main(dev)
     chain_record = phase_chain(dev)
     clock(8)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2378,12 +2852,13 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase_shonan(dev, tmp)
     clock(19)
+    phase_ml(dev, batch_optimum, pose_its)
+    clock(21)
     # the kernels are timed: phases 9 and 15 (parity, untimed), phase 18's
-    # full-size stream, and phase 19's parity with phase 20 run in three
-    # more processes beside 16 and 17
+    # full-size stream, phase 19's parity with phases 20 and 22, and phase
+    # 22's solver_comparer run in four more processes beside 16 and 17
     with tempfile.TemporaryDirectory() as tmp:
-        children = [start_child("smart", tmp), start_child("parity", tmp),
-                    start_child("breadth", tmp)]
+        children = [start_child(kind, tmp) for kind in CHILDREN]
         try:
             phase_vio_batch(dev, tmp)
             clock(16)
@@ -2394,7 +2869,9 @@ def main():
             join_child(children[1])
             clock("9 and 15")
             join_child(children[2])
-            clock("19 (card == CPU) and 20")
+            clock("19 (card == CPU), 20 and 22")
+            join_child(children[3])
+            clock("22 (solver_comparer)")
         finally:
             for _, proc, _ in children:
                 if proc.poll() is None:
@@ -2435,6 +2912,8 @@ if __name__ == "__main__":
             smart_stream_child(f"{sys.argv[3]}/smart_stream.json")
         elif sys.argv[2] == "breadth":
             breadth_child(sys.argv[3])
+        elif sys.argv[2] == "comparer":
+            comparer_child(sys.argv[3])
         else:
             parity_child(sys.argv[3])
     else:

@@ -177,17 +177,13 @@ class Partition:
                 "min_part": min(sizes) if sizes else 0, "separator": self.separator.size}
 
 
-def partition_graph(graph, counts: Dict[str, int], max_part_size: int = 256) -> Partition:
-    """Recursively bisect until every interior part <= max_part_size.
-
-    All separator vertices (from every level) join one global separator —
-    a two-level elimination structure: batched interior elimination, then a
-    single reduced separator solve."""
-    vi, A = build_adjacency(graph, counts)
-    all_nodes = np.arange(vi.num_vars)
+def partition_nodes(A: sp.csr_matrix, nodes, max_part_size: int):
+    """Recursive bisection of `nodes` until every part has at most
+    max_part_size of them: (sorted parts, the sorted union of every
+    level's separators)."""
     parts: List[np.ndarray] = []
     seps: List[np.ndarray] = []
-    stack = [all_nodes]
+    stack = [np.asarray(nodes, dtype=np.int64)]
     while stack:
         nodes = stack.pop()
         if nodes.size == 0:
@@ -204,4 +200,16 @@ def partition_graph(graph, counts: Dict[str, int], max_part_size: int = 256) -> 
         stack.append(a)
         stack.append(b)
     separator = np.sort(np.concatenate(seps)) if seps else np.array([], dtype=np.int64)
+    return parts, separator
+
+
+def partition_graph(graph, counts: Dict[str, int], max_part_size: int = 256) -> Partition:
+    """Recursively bisect until every interior part <= max_part_size.
+
+    All separator vertices (from every level) join one global separator —
+    a two-level elimination structure: batched interior elimination, then a
+    single reduced separator solve."""
+    vi, A = build_adjacency(graph, counts)
+    parts, separator = partition_nodes(A, np.arange(vi.num_vars),
+                                       max_part_size)
     return Partition(parts, separator, vi)

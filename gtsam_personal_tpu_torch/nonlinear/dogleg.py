@@ -6,12 +6,10 @@ blend of the steepest-descent and Gauss-Newton points inside the trust
 radius Delta with gain-ratio updates; and
 NonlinearConjugateGradientOptimizer, a line search over retractions).
 
-The JAX package takes its two anchor points from a sequential elimination
-(linear/conditional.py, ROADMAP queue 1 item 3, not ported yet): the
-Bayes net R x = d with R^T R = H and R^T d = -g. Its `optimize` is the
-Gauss-Newton point H^{-1}(-g) and its `optimize_gradient_search` the Cauchy
-point (g.g / g^T H g)(-g). Here both come from the dense normal equations
-of linear/linearize.py:assemble_dense, the same two points.
+The two anchor points come from a sequential elimination
+(linear/conditional.py): the Bayes net R x = d with R^T R = H and R^T d =
+-g, whose `optimize` is the Gauss-Newton point and whose
+`optimize_gradient_search` is the Cauchy point.
 """
 
 import math
@@ -22,8 +20,8 @@ from gtsam_personal_tpu_torch.core.graph import FactorGraph
 from gtsam_personal_tpu_torch.core.values import (Layout, Values, tree_axpy,
                                                   tree_norm, tree_scale,
                                                   tree_vdot)
+from gtsam_personal_tpu_torch.linear.conditional import eliminate_sequential
 from gtsam_personal_tpu_torch.linear.linearize import linearize
-from gtsam_personal_tpu_torch.linear.solvers import cholesky_nan
 from gtsam_personal_tpu_torch.nonlinear.optimizers import (Params, Result,
                                                            check_convergence,
                                                            graph_error)
@@ -31,16 +29,12 @@ from gtsam_personal_tpu_torch.nonlinear.optimizers import (Params, Result,
 
 def _gn_and_gradient(graph: FactorGraph, values: Values):
     """(Gauss-Newton point, Cauchy point, descent direction -g) as tangent
-    dicts (reference: DoglegOptimizerImpl consumes GaussianBayesNet::
-    optimize and ::optimizeGradientSearch)."""
-    layout = Layout.of(values)
+    dicts, by sequential elimination (reference: DoglegOptimizerImpl
+    consumes GaussianBayesNet::optimize and ::optimizeGradientSearch)."""
     lin = linearize(graph, values)
-    H, g = lin.assemble_dense(layout)
-    gn = torch.cholesky_solve(-g[:, None], cholesky_nan(H))[:, 0]
-    gHg = g @ (H @ g)
-    u = (g @ g) / torch.clamp(gHg, min=1e-300) * -g
-    return (layout.unflatten(gn), layout.unflatten(u),
-            layout.unflatten(-g))
+    bn = eliminate_sequential(lin, Layout.of(values))
+    return (bn.optimize(), bn.optimize_gradient_search(),
+            tree_scale(lin.gradient_at_zero(), -1.0))
 
 
 def _dogleg_point(delta_tr, gn, u):

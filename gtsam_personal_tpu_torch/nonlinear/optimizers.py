@@ -11,13 +11,20 @@ check_convergence, graph_error, optimize_gn, optimize_lm, lm_run, Result
   (lambda *= factor);
 - optional diagonal damping lambda * diag(H) as in `buildDampedSystem`.
 
-Solvers "dense", "pcg" and "schur" work. `fm=True` is accepted and runs the
-row layout: the JAX package's feature-major layout (linear/fm.py, which it
-takes for "pcg" and "schur") is a relayout for the TPU's tiles that
+Solvers: "dense" (the assembled normal equations), "pcg" (block-Jacobi
+CG), "schur" with a two-level `schur.SchurPlan` or a multi-level
+`mlschur.MLPlan`, "qr" (dense QR of the whitened Jacobian, identity
+damping only) and "sequential" (sequential elimination into a
+GaussianBayesNet and its back-substitution). `fm=True` is accepted and runs
+the row layout: the JAX package's feature-major layout (linear/fm.py, which
+it takes for "pcg" and "schur") is a relayout for the TPU's tiles that
 exact-matches its row layout, so the row layout computes the same
-function. The solvers "qr" and "sequential", a multi-level Schur plan and
-the single-program `optimize_lm_jit` are not in the port yet; asking for one
-raises NotImplementedError with the ROADMAP item that will bring it.
+function. The single-program `optimize_lm_jit` is not in the port.
+
+On a failure (a non-finite error, or lambda past its bound) `optimize_gn`
+and `optimize_lm` print linear/diagnostics.py's report when
+`diagnose_on_failure` is set (reference: IndeterminantLinearSystemException
+naming the key, linear/linearExceptions.h).
 """
 
 import math
@@ -28,9 +35,12 @@ import torch
 
 from gtsam_personal_tpu_torch.core.graph import FactorGraph
 from gtsam_personal_tpu_torch.core.values import Layout, Values, tree_norm
-from gtsam_personal_tpu_torch.linear import solvers
+from gtsam_personal_tpu_torch.linear import conditional, diagnostics, solvers
 from gtsam_personal_tpu_torch.linear.linearize import linearize
+from gtsam_personal_tpu_torch.linear.mlschur import MLPlan, solve_ml
 from gtsam_personal_tpu_torch.linear.schur import SchurPlan, solve_partitioned
+
+SOLVERS = ("dense", "pcg", "schur", "qr", "sequential")
 
 
 @dataclass(frozen=True)
@@ -41,7 +51,7 @@ class Params:
     relative_error_tol: float = 1e-5
     absolute_error_tol: float = 1e-5
     error_tol: float = 0.0
-    solver: str = "dense"          # 'dense' | 'pcg' | 'schur'
+    solver: str = "dense"          # one of SOLVERS
     pcg_maxiter: int = 250
     pcg_tol: float = 1e-8
     fm: bool = False               # feature-major layout: the row layout here
@@ -53,6 +63,9 @@ class Params:
     diagonal_damping: bool = False
     max_inner_tries: int = 10
     verbose: bool = False
+    # on a failure, print linear/diagnostics.py's report: the non-finite
+    # factor rows and the singular variables
+    diagnose_on_failure: bool = True
     # reference: NonlinearOptimizerParams::iterationHook(iter, errBefore,
     # errAfter), called after every accepted iteration
     # (NonlinearOptimizer.cpp:99)
@@ -70,19 +83,15 @@ def check_convergence(params: Params, old_err, new_err):
 
 
 def _check_supported(params: Params, plan):
-    if params.solver in ("qr", "sequential"):
-        raise NotImplementedError(
-            f"solver {params.solver!r}: linear/conditional.py is not ported "
-            "(ROADMAP queue 1 item 3)")
-    if params.solver not in ("dense", "pcg", "schur"):
+    if params.solver not in SOLVERS:
         raise ValueError(f"unknown solver {params.solver!r}")
-    if params.solver == "schur" and not isinstance(plan, SchurPlan):
+    if params.solver == "schur" and not isinstance(plan, (SchurPlan,
+                                                          MLPlan)):
         if plan is None:
-            raise ValueError("solver 'schur' needs plan=schur.make_plan(...)")
-        raise NotImplementedError(
-            f"a plan of type {type(plan).__name__}: only linear/schur.py's "
-            "SchurPlan is ported; the multi-level plan of linear/mlschur.py "
-            "is ROADMAP queue 1 item 3")
+            raise ValueError("solver 'schur' needs plan=schur.make_plan(...) "
+                             "or mlschur.make_ml_plan(...)")
+        raise TypeError(f"solver 'schur' takes a schur.SchurPlan or an "
+                        f"mlschur.MLPlan, not a {type(plan).__name__}")
 
 
 def _solve(lin, layout, lam, diag_damping, params: Params, plan):
@@ -91,7 +100,16 @@ def _solve(lin, layout, lam, diag_damping, params: Params, plan):
                                  maxiter=params.pcg_maxiter,
                                  tol=params.pcg_tol)
     if params.solver == "schur":
+        if isinstance(plan, MLPlan):
+            return solve_ml(lin, plan, lam)
         return solve_partitioned(lin, plan, lam)
+    if params.solver == "qr":
+        # never forms J^T J (reference: EliminateQR); identity damping only
+        return conditional.solve_qr(lin, layout, lam)
+    if params.solver == "sequential":
+        # reference: eliminateSequential + GaussianBayesNet::optimize
+        return conditional.eliminate_sequential(lin, layout,
+                                                lam=lam).optimize()
     return solvers.solve_dense(
         lin, layout, lam,
         layout.flatten(diag_damping) if diag_damping is not None else None)
@@ -113,6 +131,19 @@ def _lm_try_step(graph: FactorGraph, values: Values, lam, params: Params,
 
 def graph_error(graph: FactorGraph, values: Values):
     return graph.error(values)
+
+
+def _maybe_diagnose(graph, values, params: Params):
+    """On a failure, print the non-finite factor rows and the singular
+    variables (reference: IndeterminantLinearSystemException)."""
+    if not params.diagnose_on_failure:
+        return
+    try:
+        rep = diagnostics.diagnose(graph, values)
+        if not rep.ok:
+            print(rep)
+    except Exception as e:  # the diagnosis must never mask the failure
+        print(f"(diagnosis failed: {e})")
 
 
 @dataclass
@@ -137,6 +168,7 @@ def optimize_gn(graph: FactorGraph, values: Values, params: Params = Params(),
         if params.verbose:
             print(f"GN iter {it}: error {err:.6g} -> {new_err:.6g}")
         if not math.isfinite(new_err):
+            _maybe_diagnose(graph, values, params)
             return Result(values, err, it, False)
         converged = check_convergence(params, err, new_err)
         if new_err <= err:
@@ -166,8 +198,10 @@ def optimize_lm(graph: FactorGraph, values: Values, params: Params = Params(),
                 break
             lam = lam * params.lambda_factor
             if lam > params.lambda_upper_bound:
+                _maybe_diagnose(graph, values, params)
                 return Result(values, err, it, False, lam)
         if not accepted:
+            _maybe_diagnose(graph, values, params)
             return Result(values, err, it, False, lam)
         if params.verbose:
             print(f"LM iter {it}: error {err:.6g} -> {new_err:.6g} "

@@ -288,17 +288,37 @@ def test_check_convergence_matches():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"solver": "qr"}, NotImplementedError),
-    ({"solver": "sequential"}, NotImplementedError),
     ({"solver": "cholmod"}, ValueError),
 ])
 def test_unported_paths_raise(case, kw, exc):
     e0 = opt.graph_error(case.graph, case.values)
-    with pytest.raises(exc, match="ROADMAP|unknown solver"):
+    with pytest.raises(exc, match="unknown solver"):
         opt.lm_run(case.graph, case.values, 1e-5, e0, 1, opt.Params(**kw),
                    case.plan)
     with pytest.raises(exc):
         opt.optimize_lm(case.graph, case.values, opt.Params(**kw), case.plan)
+
+
+@pytest.mark.parametrize("solver", ["qr", "sequential"])
+def test_elimination_solvers_match(case, solver):
+    """Params(solver="qr" | "sequential") in lm_run and optimize_lm against
+    the JAX package's on the same graph."""
+    e0 = opt.graph_error(case.graph, case.values)
+    v, lam, err = opt.lm_run(case.graph, case.values, 1e-5, e0, 4,
+                             opt.Params(solver=solver))
+    jv, jlam, jerr = jopt.lm_run(case.jgraph, case.jvalues, 1e-5,
+                                 float(e0), 4, jopt.Params(solver=solver))
+    assert float(lam) == pytest.approx(float(jlam), rel=1e-12)
+    assert float(err) == pytest.approx(float(jerr), rel=1e-9)
+    np.testing.assert_allclose(v["se2"].numpy(), np.asarray(jv["se2"]),
+                               rtol=0, atol=1e-9)
+    ref = jopt.optimize_lm(case.jgraph, case.jvalues,
+                           jopt.Params(solver=solver, max_iterations=20,
+                                       diagnose_on_failure=False))
+    res = opt.optimize_lm(case.graph, case.values,
+                          opt.Params(solver=solver, max_iterations=20))
+    assert (res.iterations, res.converged) == (ref.iterations, ref.converged)
+    assert res.error == pytest.approx(ref.error, rel=1e-9)
 
 
 def test_schur_needs_a_schur_plan(case):
@@ -306,6 +326,6 @@ def test_schur_needs_a_schur_plan(case):
     with pytest.raises(ValueError, match="make_plan"):
         opt.lm_run(case.graph, case.values, 1e-5, e0, 1,
                    opt.Params(solver="schur"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="SchurPlan or an mlschur.MLPlan"):
         opt.lm_run(case.graph, case.values, 1e-5, e0, 1,
                    opt.Params(solver="schur"), plan=object())
