@@ -5,11 +5,13 @@
 
 Phases, numbered as in the order they were added; any failure raises and
 the script exits non-zero. They run in this order: 1-8, 10-14, 19, 21,
-then 16 and 17 beside four more processes of this script (`--child parity
-TMP`: phases 9 and 15, which time nothing; `--child smart TMP`: phase 18's
-full-size stream; `--child breadth TMP`: phase 19's card == CPU checks and
-phases 20 and 22's card == CPU checks, which time nothing; `--child
-comparer TMP`: phase 22's solver_comparer run), then the rest of 18; the
+23, 24's optimize_lm_jit, then 16 and 17 beside five more processes of
+this script (`--child parity TMP`: phases 9 and 15, which time nothing;
+`--child smart TMP`: phase 18's full-size stream; `--child breadth TMP`:
+phase 19's card == CPU checks and phases 20, 22 and 25's card == CPU
+checks, which time nothing; `--child comparer TMP`: phase 22's
+solver_comparer run; `--child hybrid TMP`: phase 24's hybrid stream),
+then the rest of 18; the
 kernels are timed before the other processes start or after they end:
   1. require CUDA (there is no CPU fallback) and print the card's name and
      power limit as nvidia-smi reports them;
@@ -204,6 +206,31 @@ kernels are timed before the other processes start or after they end:
      direct solvers agree to 1e-6 in their parameters; a second run's
      snapshot is within 1e-6 of the first's).
 
+ 23. the camera-major BA engine (sfm/ba.py:optimize_ba) on phase 5's
+     problem in float32: one warm-up iteration, then CM_ITERS (10) at its
+     defaults (lambda0 1e-4, 12 tries an iteration, PCG to 1e-6 or 100
+     iterations, its convergence flag read every 8); seconds a try, the
+     split by CUDA events (linearize, preconditioner, PCG, error), PCG
+     iterations and landmark_block_solve launches a try; gates: finite,
+     decreasing, rms < 1.3 px, the kernel launched; the 29-camera float64
+     step (lambda 1, CG to 1e-12) and the error after it card == CPU to
+     1e-9; then tools/sfm_example_bal.py with both engines (float64,
+     CM_ITERS iterations) on a write_bal file of the problem, each
+     decreasing;
+ 24. optimize_lm_jit against optimize_lm (the same Params and plan) on
+     phase 7's graph in float64: final errors within 1e-9; then
+     tools/hybrid_city10000.py on the stand-in of T1_city10000_04.txt
+     (write_city10000_hybrid: phase 7's graph as EDGE2 lines, 62 loop
+     closures with a second, wrong candidate): both engines at the
+     example's 150 lines card == CPU (modes equal, final error to 1e-9)
+     and equal to the stand-in's true modes, then the ISAM2 engine timed
+     at HYBRID_TIMED_LINES (500) lines: ms an edge and chain_factorize's
+     launches (gate: the true modes, the kernel launched);
+ 25. the rest of the library card == CPU in float64 (discrete inference,
+     the scheduler CSP, Chebyshev fit and matrices, a QPS file's QP,
+     keys, symbolic elimination, the Graphviz text; 1e-12), and
+     tools/discrete_examples.py on the card, in the breadth process.
+
 The last two lines are a JSON record of the kernels ({"kernels": [...]},
 each with the launch count from its main path, named in its
 `launches_from`) and {"ok": true, "device": {...}}.
@@ -221,6 +248,12 @@ import numpy as np
 import torch
 
 from gtsam_personal_tpu_torch import config, native
+from gtsam_personal_tpu_torch.basis import chebyshev
+from gtsam_personal_tpu_torch.core import keys
+from gtsam_personal_tpu_torch.discrete import csp, discrete
+from gtsam_personal_tpu_torch.inference import symbolic
+from gtsam_personal_tpu_torch.io import qps
+from gtsam_personal_tpu_torch.utils import dot as dotw
 from gtsam_personal_tpu_torch.core.graph import (FactorBatch, FactorGraph,
                                                  GraphBuilder)
 from gtsam_personal_tpu_torch.core.values import (Layout, Values, tree_vdot,
@@ -250,8 +283,8 @@ from gtsam_personal_tpu_torch.ops import preintegration as preint_ops
 from gtsam_personal_tpu_torch.ops.block_solve import (
     landmark_block_solve, landmark_block_solve_ref)
 from gtsam_personal_tpu_torch.ops.chain import chain_factorize
-from gtsam_personal_tpu_torch.sfm import (averaging, ba, ba_pack, shonan,
-                                          synthetic)
+from gtsam_personal_tpu_torch.sfm import (averaging, ba, ba_pack, bal,
+                                          shonan, synthetic)
 from gtsam_personal_tpu_torch.slam import (dataset, factors as F, initialize,
                                            manhattan, metrics)
 from gtsam_personal_tpu_torch.tools import factor_samples, profile_isam2
@@ -262,6 +295,9 @@ from gtsam_personal_tpu_torch.tools import pose2_slam_example as pose2_tool
 from gtsam_personal_tpu_torch.tools import shonan_averaging_cli as shonan_cli
 from gtsam_personal_tpu_torch.tools import solver_comparer as comparer_tool
 from gtsam_personal_tpu_torch.tools import tutorials as tutorials_tool
+from gtsam_personal_tpu_torch.tools import discrete_examples as discrete_tool
+from gtsam_personal_tpu_torch.tools import hybrid_city10000 as hybrid_tool
+from gtsam_personal_tpu_torch.tools import sfm_example_bal as sfm_tool
 from gtsam_personal_tpu_torch.tools import isam2_smart_factor as smart_tool
 from gtsam_personal_tpu_torch.utils import serialization
 from gtsam_personal_tpu_torch.tools.profile_isam2 import (
@@ -555,10 +591,7 @@ def phase_main(dev):
     """Full-size LM under the bench gates; returns launches in the timed
     run."""
     t0 = time.perf_counter()
-    prob = synthetic.make_skewed_problem(
-        num_cameras=1723, num_points=156000, mean_track=4.0, max_track=40,
-        seed=2, cam_zipf=1.2)
-    state, obs = ba.state_from_bal(prob, device=dev, dtype=torch.float32)
+    prob, state, obs = _ladybug(torch.float32, dev)
     pl = ba_pack.make_pack_layout(obs, prob.num_cameras, prob.num_points)
     err0 = ba_pack.ba_error_pk(state, obs, pl)
     err_init = float(err0)
@@ -1238,6 +1271,48 @@ def write_sphere(path):
     return truth
 
 
+# the stand-in of T1_city10000_04.txt (phase 24): phase 7's 10000-pose
+# Manhattan world, every edge a line `EDGE2 keyS 1 keyT 1 numMeas x y rad
+# [x y rad]` ordered by target pose, odometry first; HYBRID_AMBIGUOUS of the
+# loop closures (the first 3, then a seeded spread; the real file has 62)
+# carry a second candidate, the true measurement composed with an offset of
+# HYBRID_WRONG (signs seeded), in a seeded order
+HYBRID_AMBIGUOUS = 62
+HYBRID_WRONG = np.array([1.5, 1.0, 0.4])
+
+
+def write_city10000_hybrid(path, seed=0):
+    """Write the stand-in; returns the true mode of each mode variable,
+    {1000 + k: index of the true candidate of the k-th ambiguous line}."""
+    graph, _, _ = manhattan.make_manhattan(POSE_N, seed=42, device="cpu",
+                                           dtype=torch.float64)
+    (b,) = [b for b in graph.batches if b.name == "between_se2"]
+    idx, meas = b.idx.numpy(), b.meas["measured"].numpy()
+    order = np.lexsort((idx[:, 1] - idx[:, 0] > 1, idx[:, 1]))
+    closures = [k for k in order if idx[k, 1] - idx[k, 0] > 1]
+    rng = np.random.default_rng(seed)
+    amb = closures[:3] + list(rng.choice(closures[3:], HYBRID_AMBIGUOUS - 3,
+                                         replace=False))
+    amb = set(int(k) for k in amb)
+    modes, lines = {}, []
+    for k in order:
+        cands = [meas[k]]
+        if k in amb:
+            off = HYBRID_WRONG * rng.choice([-1.0, 1.0], 3)
+            wrong = se2.compose(torch.tensor(meas[k]),
+                                torch.tensor(off)).numpy()
+            true_mode = int(rng.integers(2))
+            cands = [wrong, wrong]
+            cands[true_mode] = meas[k]
+            modes[1000 + len(modes)] = true_mode
+        lines.append(f"EDGE2 {idx[k, 0]} 1 {idx[k, 1]} 1 {len(cands)} "
+                     + " ".join(f"{x:.9f} {y:.9f} {t:.9f}"
+                                for x, y, t in cands))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return modes
+
+
 # the stand-in of examples/Data/imuAndGPSdata.csv: a car at 10 m/s turning
 # at 0.05 rad/s, 200 IMU samples per GPS fix, the example's imuParams()
 VIO_OMEGA, VIO_VEL = np.array([0.0, 0.0, 0.05]), np.array([10.0, 0.0, 0.0])
@@ -1812,9 +1887,10 @@ def parity_child(tmp):
 
 CHILDREN = {"smart": "phase 18's full-size stream",
             "parity": "phases 9 and 15",
-            "breadth": "phase 19's card == CPU checks and phases 20 and "
-                       "22",
-            "comparer": "phase 22's tools/solver_comparer.py run"}
+            "breadth": "phase 19's card == CPU checks and phases 20, 22 "
+                       "and 25",
+            "comparer": "phase 22's tools/solver_comparer.py run",
+            "hybrid": "phase 24's hybrid City10000 stream"}
 
 
 def start_child(kind, tmp):
@@ -2798,6 +2874,312 @@ def phase_solver_comparer(dev, tmp):
         raise RuntimeError(f"gate: [22] snapshots differ by {diff}")
 
 
+# phase 23: the camera-major engine's run on phase 5's problem
+CM_ITERS = 10
+# phase 24: lines of the timed hybrid stream (the example's default is 150)
+HYBRID_TIMED_LINES = 500
+
+
+def _ladybug(dtype, dev):
+    """Phase 5's problem: (BalProblem, BAState, BAObservations)."""
+    prob = synthetic.make_skewed_problem(
+        num_cameras=1723, num_points=156000, mean_track=4.0, max_track=40,
+        seed=2, cam_zipf=1.2)
+    return (prob, *ba.state_from_bal(prob, device=dev, dtype=dtype))
+
+
+class _Split:
+    """The probe of ba.optimize_ba: a CUDA event at each label, the time
+    between consecutive events charged to the later label (linearize,
+    precond, pcg, error), and CG's iteration counts."""
+
+    def __init__(self):
+        self.events = [("start", torch.cuda.Event(enable_timing=True))]
+        self.events[0][1].record()
+        self.iterations = []
+
+    def __call__(self, label, iterations=None, **_):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events.append((label, e))
+        if iterations is not None:
+            self.iterations.append(iterations)
+
+    def totals(self):
+        torch.cuda.synchronize()
+        out = {}
+        for (_, a), (label, b) in zip(self.events, self.events[1:]):
+            out[label] = out.get(label, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def phase_cm(dev, tmp):
+    """The camera-major engine (sfm/ba.py:optimize_ba) at full size in
+    float32, its card == CPU check and tools/sfm_example_bal.py with both
+    engines."""
+    t0 = time.perf_counter()
+    prob, state, obs = _ladybug(torch.float32, dev)
+    layout = ba.make_layout(obs, prob.num_cameras, prob.num_points)
+    err_init = float(ba.ba_error(state, obs))
+    print(f"[23] problem C={layout.C} P={layout.P} M={layout.M} built in "
+          f"{_seconds_since(t0):.1f} s; initial error {err_init:.6g}")
+    ba.optimize_ba(state, obs, layout, max_iterations=1)   # warm-up
+    split = _Split()
+    landmark_block_solve.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, err, its = ba.optimize_ba(state, obs, layout, max_iterations=CM_ITERS,
+                                 probe=split)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = landmark_block_solve.launches
+    tries = len(split.iterations)
+    cg = [int(k) for k in split.iterations]
+    ms = split.totals()
+    rms = float(np.sqrt(2.0 * err / layout.M))
+    print(f"[23] optimize_ba (lambda0 1e-4, cg_maxiter 100, tol 1e-6): "
+          f"error {err_init:.6g} -> {err:.6g}, rms {rms:.4f} px, {its} "
+          f"iterations, {tries} tries in {dt:.3f} s: {dt / tries:.4f} s a "
+          f"try")
+    print(f"[23] split by CUDA events, ms a try: "
+          + ", ".join(f"{k} {v / tries:.3f}" for k, v in ms.items())
+          + f" (linearize once an iteration: {ms.get('linearize', 0) / its:.3f}"
+          f" ms an iteration)")
+    print(f"[23] PCG iterations a try: mean {np.mean(cg):.1f}, "
+          f"min {min(cg)}, max {max(cg)}; landmark_block_solve launches "
+          f"{launches} ({launches / tries:.1f} a try: 2 + 1 a PCG "
+          f"iteration)")
+    if not np.isfinite(err):
+        raise RuntimeError(f"gate: [23] non-finite error {err}")
+    if not err < err_init:
+        raise RuntimeError(f"gate: [23] error did not decrease: {err_init} "
+                           f"-> {err}")
+    if not rms < 1.3:
+        raise RuntimeError(f"gate: [23] rms reprojection {rms:.4f} px >= "
+                           f"1.3 px")
+    if launches <= 0:
+        raise RuntimeError("[23] the camera-major engine launched no "
+                           "landmark_block_solve kernel")
+    del state, obs, layout
+
+    small = synthetic.make_skewed_problem(
+        num_cameras=29, num_points=300, mean_track=4.0, max_track=24, seed=5,
+        cam_zipf=1.2)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        st, ob = ba.state_from_bal(small, device=d, dtype=torch.float64)
+        pl = ba.make_layout(ob, small.num_cameras, small.num_points)
+        xc, xp = ba.solve_ba_step_cm(st, ob, pl, 1.0, cg_maxiter=300,
+                                     cg_tol=1e-12)
+        e = ba.ba_error_cm(ba.retract_ba(st, xc, xp), ob, pl)
+        out[d.type] = [x.cpu() for x in (xc, xp, e)]
+    gap = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+              for a, b in zip(out["cuda"], out["cpu"]))
+    print(f"[23] 29-camera float64 step (lambda 1, CG to 1e-12) and the "
+          f"error after it: card vs CPU {gap:.2e} of the largest entry "
+          f"(limit 1e-9)")
+    if not gap <= 1e-9:
+        raise RuntimeError(f"gate: [23] card vs CPU {gap}")
+
+    t0 = time.perf_counter()
+    path = f"{tmp}/ladybug_standin.txt"
+    bal.write_bal(path, prob)
+    print(f"[23] write_bal of the problem: {_seconds_since(t0):.1f} s")
+    for engine in ("pack", "cm"):
+        lines = []
+        rec = sfm_tool.run(path, CM_ITERS, engine, device=dev,
+                           say=lines.append)
+        for line in lines:
+            print(f"[23] sfm_example_bal --engine {engine}: {line}")
+        if not rec["final"] < rec["initial"]:
+            raise RuntimeError(f"gate: [23] sfm_example_bal --engine "
+                               f"{engine} did not decrease")
+    return launches, tries
+
+
+def phase_lm_jit(dev):
+    """optimize_lm_jit against optimize_lm on phase 7's graph, float64."""
+    graph, initial, _ = manhattan.make_manhattan(POSE_N, seed=42, device=dev,
+                                                 dtype=torch.float64)
+    plan = schur.make_plan(graph, {"se2": POSE_N}, max_part_size=POSE_PART)
+    params = optimizers.Params(solver="schur", lambda_initial=POSE_LAM0,
+                               max_iterations=POSE_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = optimizers.optimize_lm(graph, initial, params, plan)
+    t_lm = _seconds_since(t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, err, it = optimizers.optimize_lm_jit(graph, initial, params,
+                                            plan=plan)
+    err = float(err)
+    t_jit = _seconds_since(t0)
+    rel = abs(err - res.error) / res.error
+    print(f"[24] optimize_lm_jit on phase 7's {POSE_N}-pose graph (schur, "
+          f"lambda0 {POSE_LAM0:g}, at most {POSE_ITERS} iterations), "
+          f"float64: error {err:.10g} in {it} iterations, {t_jit:.2f} s; "
+          f"optimize_lm {res.error:.10g} in {res.iterations} iterations, "
+          f"{t_lm:.2f} s; relative gap {rel:.2e} (limit 1e-9)")
+    if not rel <= 1e-9:
+        raise RuntimeError(f"gate: [24] optimize_lm_jit vs optimize_lm "
+                           f"{rel}")
+
+
+def phase_hybrid(dev, tmp):
+    """tools/hybrid_city10000.py on the stand-in: both engines card == CPU
+    at the example's 150 lines, then a timed ISAM2 stream."""
+    path = f"{tmp}/city10000_hybrid.txt"
+    true_modes = write_city10000_hybrid(path)
+    recs = {}
+    for engine in ("isam", "smoother"):
+        for d in (dev, torch.device("cpu")):
+            lines = []
+            t0 = time.perf_counter()
+            rec = hybrid_tool.run(path, 150, 4, engine, d, lines.append)
+            recs[engine, d.type] = rec
+            if d.type == "cuda":
+                for line in "\n".join(lines).splitlines():
+                    print(f"[24] hybrid_city10000 --engine {engine}: {line}")
+            print(f"[24] --engine {engine} on the {d.type}: "
+                  f"{_seconds_since(t0):.1f} s")
+        a, b = recs[engine, "cuda"], recs[engine, "cpu"]
+        rel = abs(a["error"] - b["error"]) / b["error"]
+        print(f"[24] --engine {engine}, 150 lines: card vs CPU error "
+              f"{rel:.2e} (limit 1e-9), modes equal: "
+              f"{a['assignment'] == b['assignment']}")
+        want = {k: true_modes[k] for k in a["assignment"]}
+        if a["assignment"] != b["assignment"] or not rel <= 1e-9:
+            raise RuntimeError(f"gate: [24] {engine} card vs CPU")
+        if a["assignment"] != want or a["modes"] < 3:
+            raise RuntimeError(f"gate: [24] {engine} picked "
+                               f"{a['assignment']}, the truth is {want}")
+    chain.chain_factorize.launches = 0
+    lines = []
+    rec = hybrid_tool.run(path, HYBRID_TIMED_LINES, 4, "isam", dev,
+                          lines.append)
+    launches = chain.chain_factorize.launches
+    for line in "\n".join(lines).splitlines():
+        print(f"[24] timed --max-lines {HYBRID_TIMED_LINES}: {line}")
+    print(f"[24] timed stream: {rec['edges']} edges, {rec['modes']} mode "
+          f"variables, {rec['ms_per_edge']:.2f} ms an edge, "
+          f"chain_factorize launches {launches}")
+    want = {k: true_modes[k] for k in rec["assignment"]}
+    if rec["assignment"] != want:
+        raise RuntimeError(f"gate: [24] timed stream picked "
+                           f"{rec['assignment']}, the truth is {want}")
+    if launches <= 0:
+        raise RuntimeError("[24] the hybrid stream launched no "
+                           "chain_factorize kernel")
+    return launches
+
+
+def _library_cases(tmp):
+    """Phase 25's problems, each a function of the device returning
+    {name: array}; the QPS file is written under `tmp`."""
+    rng = np.random.default_rng(21)
+    cards = rng.integers(2, 4, 8)
+    factors = [((v,), rng.uniform(0.2, 2.0, cards[v])) for v in range(8)]
+    for _ in range(6):
+        vs = tuple(int(x) for x in rng.choice(8, 2 + int(rng.integers(2)),
+                                              replace=False))
+        factors.append((vs, rng.uniform(0.1, 3.0, tuple(cards[list(vs)]))))
+    us = rng.uniform(size=8)
+
+    def discrete_case(d):
+        g = discrete.factor_graph_from_numpy(factors, device=d)
+        bn, _ = g.eliminate(g.variables())
+        out = {f"marginal{v}": g.marginal(v).cpu().numpy()
+               for v in g.variables()}
+        out["mpe"] = np.array(list(g.optimize().values()))
+        out["k_best"] = np.array([p for _, p in g.k_best(5)])
+        out["sample"] = np.array(list(bn.sample_from_uniforms(us).values()))
+        return out
+
+    def csp_case(d):
+        s = csp.Scheduler(3, ["Frank", "Harvey", "Ron", "Ken"], device=d)
+        s.add_student("Alice", {"AI": ["Frank", "Harvey"],
+                                "Robotics": ["Ron", "Frank"]},
+                      advisor="Frank")
+        s.add_student("Bob", {"Vision": ["Ken", "Harvey"]},
+                      available_slots=[0, 2])
+        sol = s.schedule()
+        return {"slots": np.array([sol[k]["slot"] for k in sorted(sol)])}
+
+    def chebyshev_case(d):
+        xs = np.linspace(-0.9, 0.9, 25)
+        coeffs, _ = chebyshev.fit_basis(xs, np.sin(2 * xs), 8, device=d)
+        return {"coeffs": coeffs,
+                "D": chebyshev.chebyshev2_differentiation_matrix(
+                    8, device=d).cpu().numpy(),
+                "w": chebyshev.chebyshev2_weights(
+                    xs, 8, device=d).cpu().numpy()}
+
+    def qps_case(d):
+        path = f"{tmp}/tiny.qps"
+        with open(path, "w") as f:
+            f.write(QPS_TEXT)
+        x, obj = qps.solve_qps(path)
+        return {"x": x, "obj": np.array([obj])}
+
+    def keys_symbolic_dot_case(d):
+        sg = symbolic.SymbolicFactorGraph(
+            [(i, i + 1) for i in range(11)] + [(0, 6), (3, 9)])
+        bn, fill = sg.eliminate(sg.default_ordering())
+        graph, _, _ = manhattan.make_manhattan(60, seed=3, device=d,
+                                               dtype=torch.float64)
+        text = dotw.to_dot(graph)
+        return {"keys": np.array([keys.Symbol("x", 5).key(),
+                                  keys.EdgeKey(3, 4).key()], dtype=np.uint64),
+                "fill": np.array([fill, len(bn)]),
+                "dot": np.frombuffer(text.encode(), dtype=np.uint8)}
+
+    return {"discrete": discrete_case, "csp": csp_case,
+            "chebyshev": chebyshev_case, "qps": qps_case,
+            "keys, symbolic, dot": keys_symbolic_dot_case}
+
+
+QPS_TEXT = """NAME          TINYQP
+ROWS
+ N  obj
+ L  c1
+ E  c2
+COLUMNS
+    x1        obj       -1.0       c1        1.0
+    x1        c2        1.0
+    x2        obj       -2.0       c1        1.0
+    x2        c2        -1.0
+RHS
+    rhs       c1        4.0        c2        0.2
+BOUNDS
+ UP bnd       x1        3.0
+QUADOBJ
+    x1        x1        2.0
+    x2        x2        1.0
+ENDATA
+"""
+
+
+def phase_library(dev, tmp):
+    """The rest of the library card == CPU in float64, and
+    tools/discrete_examples.py on the card."""
+    for name, fn in _library_cases(tmp).items():
+        t0 = time.perf_counter()
+        c, h = fn(dev), fn(torch.device("cpu"))
+        gap = max(float(np.abs(c[k].astype(np.float64)
+                               - h[k].astype(np.float64)).max())
+                  if c[k].shape == h[k].shape else float("inf") for k in h)
+        print(f"[25] {name}: max |card - CPU| {gap:.2e} (limit 1e-12) over "
+              f"{', '.join(sorted(h))}; {_seconds_since(t0):.1f} s both")
+        if not gap <= 1e-12:
+            raise RuntimeError(f"[25] {name}: card vs CPU {gap}")
+    lines = []
+    ok = discrete_tool.run(dev, lines.append)
+    for line in lines:
+        print(f"[25] discrete_examples: {line}")
+    if not ok:
+        raise RuntimeError("[25] discrete_examples failed its checks")
+
+
 def breadth_child(tmp):
     """Phases 19 (its card == CPU part and a record), 20 and 22 in a fourth
     process: they time nothing that is gated."""
@@ -2806,6 +3188,18 @@ def breadth_child(tmp):
     phase_shonan_parity(dev, tmp)
     phase_nonlinear_breadth(dev)
     phase_linear_breadth(dev)
+    phase_library(dev, tmp)
+
+
+def hybrid_child(tmp):
+    """Phase 24's hybrid City10000 stream (card == CPU at 150 lines, then
+    timed at HYBRID_TIMED_LINES) in a sixth process beside phases 16-17:
+    a host-bound stream of ISAM2 updates, ~130-160 s. Its
+    chain_factorize launches go to TMP/hybrid.json. One CPU thread."""
+    torch.set_num_threads(1)
+    launches = phase_hybrid(config.device("cuda"), tmp)
+    with open(f"{tmp}/hybrid.json", "w") as f:
+        json.dump({"chain_factorize_launches": launches}, f)
 
 
 def comparer_child(tmp):
@@ -2854,9 +3248,15 @@ def main():
     clock(19)
     phase_ml(dev, batch_optimum, pose_its)
     clock(21)
+    with tempfile.TemporaryDirectory() as tmp:
+        cm_launches, cm_tries = phase_cm(dev, tmp)
+    clock(23)
+    phase_lm_jit(dev)
+    clock("24 (optimize_lm_jit)")
     # the kernels are timed: phases 9 and 15 (parity, untimed), phase 18's
-    # full-size stream, phase 19's parity with phases 20 and 22, and phase
-    # 22's solver_comparer run in four more processes beside 16 and 17
+    # full-size stream, phase 19's parity with phases 20, 22 and 25, phase
+    # 22's solver_comparer run and phase 24's hybrid stream in five more
+    # processes beside 16 and 17
     with tempfile.TemporaryDirectory() as tmp:
         children = [start_child(kind, tmp) for kind in CHILDREN]
         try:
@@ -2872,6 +3272,10 @@ def main():
             clock("19 (card == CPU), 20 and 22")
             join_child(children[3])
             clock("22 (solver_comparer)")
+            join_child(children[4])
+            clock("24 (the hybrid stream)")
+            with open(f"{tmp}/hybrid.json") as f:
+                hybrid_launches = json.load(f)["chain_factorize_launches"]
         finally:
             for _, proc, _ in children:
                 if proc.poll() is None:
@@ -2883,11 +3287,17 @@ def main():
         {"name": "landmark_block_solve", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
          "launches": launches, **record,
-         "launches_from": "phase 5, the timed BA LM run"},
+         "launches_from": "phase 5, the timed BA LM run",
+         "launches_cm": cm_launches,
+         "launches_cm_from": f"phase 23, the camera-major engine's "
+                             f"{CM_ITERS} iterations ({cm_tries} tries)"},
         {"name": "chain_factorize", "route": "cuda",
          "source": CHAIN_SOURCE, "replaces": CHAIN_REPLACES,
          "launches": chain_launches, **chain_record,
-         "launches_from": "phase 10, the 10000-pose ISAM2 stream"},
+         "launches_from": "phase 10, the 10000-pose ISAM2 stream",
+         "launches_hybrid": hybrid_launches,
+         "launches_hybrid_from": f"phase 24, the hybrid City10000 stream "
+                                 f"at {HYBRID_TIMED_LINES} lines"},
         {"name": "preint_tangent", "route": "cuda",
          "source": PREINT_T_SOURCE, "replaces": PREINT_T_REPLACES,
          "launches": tangent_launches, **tangent_record,
@@ -2914,6 +3324,8 @@ if __name__ == "__main__":
             breadth_child(sys.argv[3])
         elif sys.argv[2] == "comparer":
             comparer_child(sys.argv[3])
+        elif sys.argv[2] == "hybrid":
+            hybrid_child(sys.argv[3])
         else:
             parity_child(sys.argv[3])
     else:

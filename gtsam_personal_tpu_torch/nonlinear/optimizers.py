@@ -1,8 +1,8 @@
 """Nonlinear least-squares optimizers: Gauss-Newton and Levenberg-Marquardt.
 
 JAX counterpart: gtsam_personal_tpu/nonlinear/optimizers.py:Params,
-check_convergence, graph_error, optimize_gn, optimize_lm, lm_run, Result
-(lines 34-259). Semantics follow the reference's optimizers:
+check_convergence, graph_error, optimize_gn, optimize_lm, lm_run,
+optimize_lm_jit, Result (lines 34-329). Semantics follow the reference's optimizers:
 - the convergence test is NonlinearOptimizer::checkConvergence
   (nonlinear/NonlinearOptimizer.cpp:182);
 - the LM lambda schedule is LevenbergMarquardtOptimizer with
@@ -19,7 +19,8 @@ GaussianBayesNet and its back-substitution). `fm=True` is accepted and runs
 the row layout: the JAX package's feature-major layout (linear/fm.py, which
 it takes for "pcg" and "schur") is a relayout for the TPU's tiles that
 exact-matches its row layout, so the row layout computes the same
-function. The single-program `optimize_lm_jit` is not in the port.
+function. `optimize_lm_jit` keeps the JAX single program's rules (its own,
+not `optimize_lm`'s) with the loop on the host.
 
 On a failure (a non-finite error, or lambda past its bound) `optimize_gn`
 and `optimize_lm` print linear/diagnostics.py's report when
@@ -253,3 +254,57 @@ def lm_run(graph: FactorGraph, values: Values, lam, err, n_iters: int,
             lam = torch.clamp(lam * params.lambda_factor,
                               max=params.lambda_upper_bound)
     return values, lam, err
+
+
+def optimize_lm_jit(graph: FactorGraph, values: Values,
+                    params: Params = Params(),
+                    max_iterations: Optional[int] = None, plan=None):
+    """LM with the rules of the JAX package's one-program LM (a
+    `lax.while_loop` over iterations, a `lax.scan` of tries in each), which
+    differ from `optimize_lm`'s: an iteration makes up to
+    `max_inner_tries` tries from lambda (times `lambda_factor` after each
+    reject) and keeps the first accepted one; there is no
+    `lambda_upper_bound` exit; after the iteration lambda is divided by the
+    factor with a floor of 1e-10 (not `lambda_lower_bound`); it is
+    converged when the new error is <= `error_tol` or the absolute or
+    relative decrease is below its tolerance (relative 0 when the error
+    was <= 0); the loop stops when converged or when no try was accepted.
+    Returns (values, err, it): `err` a 0-d tensor where the values live,
+    `it` the iterations run, the last one included.
+
+    Values, lambda and the error stay on the device. The loop reads one
+    flag pair from it a try (accepted, converged), so one read an
+    iteration when the first try is accepted. The JAX scan runs its tries
+    after an accepted one too, and they change nothing, so they are
+    skipped here; the tries of an iteration share its linearization (the
+    JAX program linearizes each at the same values)."""
+    _check_supported(params, plan)
+    max_it = max_iterations or params.max_iterations
+    layout = Layout.of(values)
+    err = graph.error(values)
+    lam = torch.as_tensor(params.lambda_initial, dtype=err.dtype,
+                          device=err.device)
+    it = 0
+    while it < max_it:
+        it += 1
+        lin, dd = _linearize(graph, values, params)
+        done = True                     # when no try is accepted
+        for _ in range(params.max_inner_tries):
+            new_values = values.retract(
+                _solve(lin, layout, lam, dd, params, plan))
+            new_err = graph.error(new_values)
+            ok = torch.isfinite(new_err) & (new_err < err)
+            abs_dec = err - new_err
+            rel_dec = torch.where(err > 0, abs_dec / err, 0.0)
+            conv = ((new_err <= params.error_tol)
+                    | (abs_dec <= params.absolute_error_tol)
+                    | (rel_dec <= params.relative_error_tol))
+            accepted, converged = torch.stack([ok, conv]).tolist()
+            if accepted:
+                values, err, done = new_values, new_err, converged
+                break
+            lam = lam * params.lambda_factor
+        lam = torch.clamp(lam / params.lambda_factor, min=1e-10)
+        if done:
+            break
+    return values, err, it

@@ -425,6 +425,9 @@ _FACTORIES = unstable.FACTORIES + [
                    "point3" if g == "se3" else "point2", g)),
               ("prior_", make_prior_residual),
               ("between_", make_between_residual)]
+# one function per factory name, so that the batches of a graph built by
+# name share it (hybrid/hybrid.py merges batches of one function)
+_MADE = {}
 # factories whose closure holds more than the groups
 _UNNAMEABLE = {"partial_prior_": "the component indices",
                "bounding_constraint": "the value function"}
@@ -446,7 +449,8 @@ def residual_by_name(name: str):
       (`stereo`, `projection`, `toa`, ...);
     - a navigation or dynamics residual (navigation/factors.py:NAMED:
       `imu`, `gps`, `ahrs`, `velocity_constraint_trapezoidal`, ...).
-    An `_anti` suffix, which `FactorBatch.negated` adds, is ignored.
+    An `_anti` suffix, which `FactorBatch.negated` adds, is ignored. A
+    factory's function is made once per name and returned again after.
 
     `partial_prior_<group>` and `bounding_constraint` raise ValueError: the
     closures of their factories hold more than a name says (the indices, the
@@ -469,7 +473,9 @@ def residual_by_name(name: str):
                 manifolds.get(group)
             except KeyError:
                 break
-            return make(group)
+            if name not in _MADE:
+                _MADE[name] = make(group)
+            return _MADE[name]
     raise ValueError(f"no residual function is known for a batch named "
                      f"{name!r} (known: prior_<group>, between_<group>, "
                      f"between_sensor_<g>, prior_sensor_<g>, "

@@ -108,7 +108,21 @@ def test_port_imports_no_jax():
             "gtsam_personal_tpu_torch.sfm.smart",
             "gtsam_personal_tpu_torch.tools.imu_gps_vio",
             "gtsam_personal_tpu_torch.tools.imu_factors",
-            "gtsam_personal_tpu_torch.tools.isam2_smart_factor"} <= set(mods)
+            "gtsam_personal_tpu_torch.tools.isam2_smart_factor",
+            "gtsam_personal_tpu_torch.sfm.ba",
+            "gtsam_personal_tpu_torch.core.keys",
+            "gtsam_personal_tpu_torch.inference.symbolic",
+            "gtsam_personal_tpu_torch.discrete.discrete",
+            "gtsam_personal_tpu_torch.discrete.csp",
+            "gtsam_personal_tpu_torch.hybrid.hybrid",
+            "gtsam_personal_tpu_torch.basis.chebyshev",
+            "gtsam_personal_tpu_torch.io.qps",
+            "gtsam_personal_tpu_torch.utils.timing",
+            "gtsam_personal_tpu_torch.utils.debug",
+            "gtsam_personal_tpu_torch.utils.dot",
+            "gtsam_personal_tpu_torch.tools.sfm_example_bal",
+            "gtsam_personal_tpu_torch.tools.discrete_examples",
+            "gtsam_personal_tpu_torch.tools.hybrid_city10000"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

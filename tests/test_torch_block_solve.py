@@ -141,7 +141,8 @@ def test_build_is_keyed_and_cached(tmp_path, monkeypatch):
 
 
 def test_engine_solves_landmarks_at_three_sites(monkeypatch):
-    """_solve_from_lin calls the block solve once for the gradient term,
+    """_solve_from_lin (sfm/ba.py, shared by both engines) calls the block
+    solve once for the gradient term,
     once per CG iteration and once for the back-substitution, always with
     the undamped blocks and lam + 1e-10."""
     prob = synthetic.make_skewed_problem(num_cameras=12, num_points=60,
@@ -156,7 +157,7 @@ def test_engine_solves_landmarks_at_three_sites(monkeypatch):
         seen.append((Hpp, float(lam)))
         return landmark_block_solve(Hpp, t, lam)
 
-    monkeypatch.setattr(ba_pack, "landmark_block_solve", spy)
+    monkeypatch.setattr(ba, "landmark_block_solve", spy)
     lam = torch.tensor(1e-3, dtype=torch.float64)
     ba_pack._solve_from_lin(pl, lin, red, lam, cg_maxiter=3)
     assert len(seen) == 3 + 2
