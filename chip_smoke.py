@@ -5,13 +5,14 @@
 
 Phases, numbered as in the order they were added; any failure raises and
 the script exits non-zero. They run in this order: 1-8, 10-14, 19, 21,
-23, 24's optimize_lm_jit, then 16 and 17 beside five more processes of
+23, 24's optimize_lm_jit, then 16 and 17 beside six more processes of
 this script (`--child parity TMP`: phases 9 and 15, which time nothing;
 `--child smart TMP`: phase 18's full-size stream; `--child breadth TMP`:
 phase 19's card == CPU checks and phases 20, 22 and 25's card == CPU
 checks, which time nothing; `--child comparer TMP`: phase 22's
-solver_comparer run; `--child hybrid TMP`: phase 24's hybrid stream),
-then the rest of 18; the
+solver_comparer run; `--child hybrid TMP`: phase 24's hybrid stream;
+`--child dist TMP`: phase 26, which spawns its ranks), then the rest of
+18; the
 kernels are timed before the other processes start or after they end:
   1. require CUDA (there is no CPU fallback) and print the card's name and
      power limit as nvidia-smi reports them;
@@ -231,14 +232,38 @@ kernels are timed before the other processes start or after they end:
      keys, symbolic elimination, the Graphviz text; 1e-12), and
      tools/discrete_examples.py on the card, in the breadth process.
 
+ 26. the distributed paths (parallel/), in `--child dist TMP`: it spawns
+     DIST_RANKS (4) ranks once, all on the one card in a gloo group (their
+     all-reduces go through host memory), and runs in them, rank 0
+     printing: (a) float64, the ranks against the single-device functions
+     on the card: dist_pack_solve_step against solve_ba_step_pk on the
+     29-camera problem (CG to 1e-12; gate 1e-8), dist_pack_lm_run against
+     ba_lm_run_pk, 5 iterations (lambda 1e-12 relative, error 1e-8
+     relative, state 1e-8), dist_solve_ba_step against solve_ba_step_cm
+     on the 19-camera ring (1e-8), a world of one (no boundary, 1e-8);
+     (b) dist_pack_lm_run on phase 5's problem, float32, lambda0 1e-3,
+     cg 2, balanced dealing, a warm-up run of 10 iterations and 10 timed,
+     under phase 5's gates and landmark_block_solve launched on every
+     rank: it/s, the boundary share and each rank's rows under balanced
+     and contiguous dealing, collective_overhead; the main process prints
+     the final error beside phase 5's; (c) the sharded partitioned Schur
+     solve of phase 7's graph, float64, lambda 1e-3, against
+     solve_partitioned (1e-9), ms a call of each and collective_overhead;
+     (d) one shard_graph LM step of phase 6's 300-pose graph against the
+     single-device step (1e-10) and sharded_ba_step against ba_try_step on
+     the 16-camera ring (1e-8).
+
 The last two lines are a JSON record of the kernels ({"kernels": [...]},
 each with the launch count from its main path, named in its
-`launches_from`) and {"ok": true, "device": {...}}.
+`launches_from`; landmark_block_solve adds `launches_dist`, phase 26's)
+and {"ok": true, "device": {...}}.
 """
 
 import json
 import math
 import os
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -246,6 +271,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gtsam_personal_tpu_torch import config, native
 from gtsam_personal_tpu_torch.basis import chebyshev
@@ -283,6 +309,9 @@ from gtsam_personal_tpu_torch.ops import preintegration as preint_ops
 from gtsam_personal_tpu_torch.ops.block_solve import (
     landmark_block_solve, landmark_block_solve_ref)
 from gtsam_personal_tpu_torch.ops.chain import chain_factorize
+from gtsam_personal_tpu_torch.parallel import (ba_sharded, bootstrap, dist_ba,
+                                               dist_ba_pack, dist_schur)
+from gtsam_personal_tpu_torch.parallel import mesh as pmesh
 from gtsam_personal_tpu_torch.sfm import (averaging, ba, ba_pack, bal,
                                           shonan, synthetic)
 from gtsam_personal_tpu_torch.slam import (dataset, factors as F, initialize,
@@ -589,7 +618,7 @@ def phase_parity(dev):
 
 def phase_main(dev):
     """Full-size LM under the bench gates; returns launches in the timed
-    run."""
+    run and its final error."""
     t0 = time.perf_counter()
     prob, state, obs = _ladybug(torch.float32, dev)
     pl = ba_pack.make_pack_layout(obs, prob.num_cameras, prob.num_points)
@@ -633,7 +662,7 @@ def phase_main(dev):
     if launches <= 0:
         raise RuntimeError("the main path launched no landmark_block_solve "
                            "kernel")
-    return launches
+    return launches, err_final
 
 
 def _pose_graph_run(graph, initial, plan, lam0, n_iters):
@@ -1890,17 +1919,20 @@ CHILDREN = {"smart": "phase 18's full-size stream",
             "breadth": "phase 19's card == CPU checks and phases 20, 22 "
                        "and 25",
             "comparer": "phase 22's tools/solver_comparer.py run",
-            "hybrid": "phase 24's hybrid City10000 stream"}
+            "hybrid": "phase 24's hybrid City10000 stream",
+            "dist": "phase 26's distributed paths"}
 
 
 def start_child(kind, tmp):
     """Start `chip_smoke.py --child KIND TMP` (smart_stream_child or
-    parity_child); returns (kind, process, log path)."""
+    parity_child) in a process group of its own, so that the processes it
+    starts (phase 26's ranks) can be stopped with it; returns (kind,
+    process, log path)."""
     log = f"{tmp}/{kind}.log"
     with open(log, "w") as f:
         proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--child", kind, tmp],
-            stdout=f, stderr=subprocess.STDOUT)
+            stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
     print(f"[children] {CHILDREN[kind]} started in process {proc.pid}")
     return kind, proc, log
 
@@ -3211,6 +3243,293 @@ def comparer_child(tmp):
     phase_solver_comparer(config.device("cuda"), tmp)
 
 
+# phase 26: the distributed paths, DIST_RANKS ranks sharing the one card
+DIST_RANKS = 4
+DIST_ITERS, DIST_CG = 10, 2     # phase 5's LM run
+DIST_SCHUR_LAM = 1e-3
+DIST_GRAPH_POSES = 300          # phase 6's graph, (d)'s sharded step
+
+
+def _max_gap(pairs):
+    return max(float((torch.as_tensor(a) - torch.as_tensor(b)).abs().max())
+               for a, b in pairs)
+
+
+def _gate(label, gap, limit):
+    if not gap <= limit:
+        raise RuntimeError(f"gate: [26] {label}: {gap} above {limit}")
+
+
+def _mesh_ms(fn, mesh, n):
+    """ms a call of fn on every rank: the ranks start together after a
+    barrier, the time runs to the card's synchronize after n calls."""
+    fn()
+    dist_ba.sync(mesh)
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dist_ba.sync(mesh)
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def dist_parity(mesh, say):
+    """(a) float64, the ranks against the port's single-device functions
+    on the card, on the JAX tests' problems, CG to 1e-12 for the steps."""
+    dev = mesh.device
+    prob = synthetic.make_skewed_problem(
+        num_cameras=29, num_points=300, mean_track=4.0, max_track=24, seed=5,
+        cam_zipf=1.2)
+    C, P = prob.num_cameras, prob.num_points
+    state, obs = ba.state_from_bal(prob, device=dev, dtype=torch.float64)
+    pl = ba_pack.make_pack_layout(obs, C, P)
+    sp = dist_ba.pad_cameras(state, mesh.size)
+    dpl = dist_ba_pack.build_dist_pack_layout(obs, C, P, mesh)
+    xc_r, xp_r = ba_pack.solve_ba_step_pk(state, obs, pl, 1e-4, cg_maxiter=20,
+                                          cg_tol=1e-12)
+    xc, xp = dist_ba_pack.dist_pack_solve_step(sp, dpl, 1e-4, mesh,
+                                               cg_maxiter=20, cg_tol=1e-12)
+    step_gap = _max_gap([(xc[:C], xc_r), (xp, xp_r), (xc[C:], 0.0)])
+    _gate("dist_pack_solve_step", step_gap, 1e-8)
+    err0 = ba_pack.ba_error_pk(state, obs, pl)
+    st_r, lam_r, err_r = ba_pack.ba_lm_run_pk(state, obs, pl, 1e-3, err0,
+                                              n_iters=5, cg_maxiter=8)
+    e0 = dist_ba_pack.dist_pack_error(sp, dpl, mesh)
+    st, lam, err = dist_ba_pack.dist_pack_lm_run(sp, dpl, 1e-3, e0, 5, mesh,
+                                                 cg_maxiter=8)
+    lam_gap = abs(float(lam) / float(lam_r) - 1.0)
+    err_gap = abs(float(err) / float(err_r) - 1.0)
+    state_gap = _max_gap([(st.cam_poses[:C], st_r.cam_poses),
+                          (st.cam_cals[:C], st_r.cam_cals),
+                          (st.points, st_r.points)])
+    _gate("dist_pack_lm_run lambda", lam_gap, 1e-12)
+    _gate("dist_pack_lm_run error", err_gap, 1e-8)
+    _gate("dist_pack_lm_run state", state_gap, 1e-8)
+    say(f"[26] (a) 29-camera float64, {mesh.size} ranks against the "
+        f"single-device engine on the card: dist_pack_solve_step (CG to "
+        f"1e-12) {step_gap:.2e} (limit 1e-8; boundary {dpl.Ps} of {P} "
+        f"landmarks); dist_pack_lm_run, 5 iterations: lambda {lam_gap:.1e} "
+        f"relative (1e-12), error {err_gap:.1e} relative (1e-8; "
+        f"{float(err):.10g}), state {state_gap:.2e} (1e-8)")
+
+    ring = synthetic.make_ring_problem(num_cameras=19, num_points=80,
+                                       obs_per_point=4, seed=11)
+    rs, ro = ba.state_from_bal(ring, device=dev, dtype=torch.float64)
+    layout = ba.make_layout(ro, 19, 80)
+    xc_r, xp_r = ba.solve_ba_step_cm(rs, ro, layout, 1e-4, cg_maxiter=30,
+                                     cg_tol=1e-12)
+    dl = dist_ba.build_dist_layout(ro, 19, 80, mesh)
+    xc, xp = dist_ba.dist_solve_ba_step(dist_ba.pad_cameras(rs, mesh.size),
+                                        dl, 1e-4, mesh, cg_maxiter=30,
+                                        cg_tol=1e-12)
+    ring_gap = _max_gap([(xc[:19], xc_r), (xp, xp_r)])
+    _gate("dist_solve_ba_step", ring_gap, 1e-8)
+    one = pmesh.Mesh(None, 0, 1, dev)
+    lone = dist_ba_pack.build_dist_pack_layout(obs, C, P, one)
+    xc_r, xp_r = ba_pack.solve_ba_step_pk(state, obs, pl, 3e-4, cg_maxiter=12,
+                                          cg_tol=1e-12)
+    xc, xp = dist_ba_pack.dist_pack_solve_step(state, lone, 3e-4, one,
+                                               cg_maxiter=12, cg_tol=1e-12)
+    lone_gap = _max_gap([(xc, xc_r), (xp, xp_r)])
+    if lone.Ps != 0:
+        raise RuntimeError(f"[26] a world of one has {lone.Ps} boundary "
+                           f"landmarks")
+    _gate("world of one", lone_gap, 1e-8)
+    say(f"[26] (a) 19-camera ring: dist_solve_ba_step against "
+        f"solve_ba_step_cm (CG to 1e-12) {ring_gap:.2e} (limit 1e-8, "
+        f"boundary {dl.Ps} of 80); a world of one (Ps = 0) against "
+        f"solve_ba_step_pk {lone_gap:.2e} (1e-8)")
+
+
+def dist_main(mesh, say):
+    """(b) dist_pack_lm_run at full width on phase 5's problem, float32,
+    balanced dealing: a warm-up run, then a timed run, under phase 5's
+    gates, and the collectives' share. Returns the record that the main
+    process prints beside phase 5's."""
+    dev = mesh.device
+    t0 = time.perf_counter()
+    prob, state, obs = _ladybug(torch.float32, dev)
+    C, P, M = prob.num_cameras, prob.num_points, obs.cam.numel()
+    sp = dist_ba.pad_cameras(state, mesh.size)
+    dpl = dist_ba_pack.build_dist_pack_layout(obs, C, P, mesh)
+    contiguous = dist_ba_pack.build_dist_pack_layout(obs, C, P, mesh,
+                                                     balanced=False)
+    err0 = dist_ba_pack.dist_pack_error(sp, dpl, mesh)
+    err_init = float(err0)
+    dealt = {}
+    for name, d in (("balanced", dpl), ("contiguous", contiguous)):
+        rows = np.asarray(d.rows)
+        dealt[name] = {"Ps": d.Ps, "boundary_share": d.Ps / P,
+                       "rows": d.rows,
+                       "rows_max_over_mean": float(rows.max() / rows.mean())}
+    say(f"[26] (b) problem C={C} P={P} M={M} dealt over {mesh.size} ranks "
+        f"in {_seconds_since(t0):.1f} s; initial error {err_init:.6g}")
+    for name, d in dealt.items():
+        say(f"[26] (b) {name} dealing: boundary Ps = {d['Ps']} of {P} "
+            f"landmarks ({100 * d['boundary_share']:.2f}%), rows a rank "
+            f"{list(d['rows'])}, max over mean {d['rows_max_over_mean']:.4f}")
+    dist_ba.sync(mesh)
+    t0 = time.perf_counter()
+    dist_pack_lm = dist_ba_pack.dist_pack_lm_run
+    dist_pack_lm(sp, dpl, 1e-3, err0, DIST_ITERS, mesh, cg_maxiter=DIST_CG)
+    dist_ba.sync(mesh)
+    warm = time.perf_counter() - t0
+    mesh.barrier()
+    landmark_block_solve.launches = 0
+    t0 = time.perf_counter()
+    _, lam, err = dist_pack_lm(sp, dpl, 1e-3, err0, DIST_ITERS, mesh,
+                               cg_maxiter=DIST_CG)
+    dist_ba.sync(mesh)
+    dt = time.perf_counter() - t0
+    launches = landmark_block_solve.launches
+    total, launched = mesh.psum(torch.tensor(
+        [float(launches), float(launches > 0)], dtype=torch.float64,
+        device=dev)).tolist()
+    err_final = float(err)
+    rms = float(np.sqrt(2.0 * err_final / M))
+    say(f"[26] (b) warm-up run of {DIST_ITERS} iterations: {warm:.3f} s")
+    say(f"[26] (b) error {err_init:.6g} -> {err_final:.6g}, rms {rms:.4f} "
+        f"px, lambda {float(lam):g}; {DIST_ITERS} timed LM iterations "
+        f"(cg={DIST_CG}) in {dt:.4f} s: {DIST_ITERS / dt:.3f} it/s; "
+        f"landmark_block_solve launches {launches} on rank 0, {int(total)} "
+        f"over the {mesh.size} ranks, every rank: {launched == mesh.size}")
+    if not np.isfinite(err_final):
+        raise RuntimeError(f"gate: [26] non-finite BA error {err_final}")
+    if not err_final < err_init:
+        raise RuntimeError(f"gate: [26] BA error did not decrease: "
+                           f"{err_init} -> {err_final}")
+    if not rms < 1.3:
+        raise RuntimeError(f"gate: [26] rms reprojection {rms:.4f} px")
+    if launched != mesh.size:
+        raise RuntimeError(f"[26] landmark_block_solve launched on "
+                           f"{int(launched)} of {mesh.size} ranks")
+    t_full, t_local, frac = dist_ba_pack.collective_overhead(
+        sp, dpl, mesh, lam=1e-4, cg_maxiter=10, iters=3)
+    say(f"[26] (b) collective_overhead (dist_pack_solve_step, cg 10, means "
+        f"over the ranks): full {1e3 * t_full:.3f} ms, without the "
+        f"all-reduces {1e3 * t_local:.3f} ms, fraction {frac:.4f}. The "
+        f"{mesh.size} ranks share one card and their all-reduces go "
+        f"through host memory ({dist.get_backend()}): not an NVLink figure")
+    return {"launches_dist": int(total), "it_s": DIST_ITERS / dt,
+            "seconds": dt, "err_init": err_init, "err_final": err_final,
+            "rms": rms, "lam": float(lam), "dealing": dealt,
+            "collective_overhead": [t_full, t_local, frac]}
+
+
+def dist_schur_phase(mesh, say):
+    """(c) phase 7's 10000-pose graph, float64: the sharded partitioned
+    Schur solve against solve_partitioned, both timed, and the
+    collectives' share."""
+    dev = mesh.device
+    graph, initial, _ = manhattan.make_manhattan(POSE_N, seed=42, device=dev,
+                                                 dtype=torch.float64)
+    plan = schur.make_plan(graph, {"se2": POSE_N}, max_part_size=POSE_PART)
+    lin = linearize(graph, initial)
+    dplan = dist_schur.DistSchurPlan(plan, mesh)
+    lam = DIST_SCHUR_LAM
+    got = dist_schur.solve_partitioned_sharded(lin, dplan, mesh, lam)
+    single_ms = gap = float("nan")
+    if mesh.rank == 0:          # the others wait at the barrier below
+        ref = schur.solve_partitioned(lin, plan, lam)
+        gap = _max_gap([(got["se2"], ref["se2"])])
+        _gate("solve_partitioned_sharded", gap, 1e-9)
+        single_ms = _mesh_ms(lambda: schur.solve_partitioned(lin, plan, lam),
+                             pmesh.Mesh(None, 0, 1, dev), 5)
+    mesh.barrier()
+    sharded_ms = _mesh_ms(lambda: dist_schur.solve_partitioned_sharded(
+        lin, dplan, mesh, lam), mesh, 5)
+    t_full, t_local, frac = dist_schur.collective_overhead(lin, dplan, mesh,
+                                                           lam=lam, iters=5)
+    say(f"[26] (c) {POSE_N}-pose graph, {plan.p} parts of at most "
+        f"{POSE_PART} poses, separator {plan.S_dim}, float64, lambda {lam:g}, "
+        f"{mesh.size} ranks ({dplan.pp} parts a rank): sharded == "
+        f"solve_partitioned to {gap:.2e} (limit 1e-9); {single_ms:.3f} ms a "
+        f"call alone, {sharded_ms:.3f} ms sharded; collective_overhead full "
+        f"{1e3 * t_full:.3f} ms, without the all-reduces "
+        f"{1e3 * t_local:.3f} ms, fraction {frac:.4f} (one card, the "
+        f"all-reduces through the host)")
+
+
+def dist_graph(mesh, say):
+    """(d) shard_graph: one sharded LM step of phase 6's graph, float64,
+    against the single-device step; sharded_ba_step against ba_try_step
+    on the 16-camera ring."""
+    dev = mesh.device
+    graph, initial, _ = manhattan.make_manhattan(
+        DIST_GRAPH_POSES, seed=3, device=dev, dtype=torch.float64)
+    lin = linearize(graph, initial)
+    v1 = initial.retract(solvers.solve_pcg(lin, 1e-4, maxiter=1000,
+                                           tol=1e-10))
+    e1 = float(graph.error(v1))
+    v, e = pmesh.sharded_step(pmesh.shard_graph(graph, mesh), initial, 1e-4,
+                              mesh, maxiter=1000, tol=1e-10)
+    gap = _max_gap([(v["se2"], v1["se2"])])
+    err_gap = abs(float(e) / e1 - 1.0)
+    _gate("sharded_step", gap, 1e-10)
+    _gate("sharded_step error", err_gap, 1e-10)
+    ring = synthetic.make_ring_problem(num_cameras=16, num_points=64,
+                                       obs_per_point=4, seed=5)
+    rs, ro = ba.state_from_bal(ring, device=dev, dtype=torch.float64)
+    layout = ba.make_layout(ro, 16, 64)
+    s1, re1 = ba.ba_try_step(rs, ro, layout, 1e-4, cg_maxiter=50)
+    st, ob, dl = ba_sharded.shard_ba(rs, ro, layout, mesh)
+    s2, re2 = ba_sharded.sharded_ba_step(st, ob, dl, 1e-4, cg_maxiter=50)
+    ba_gap = _max_gap([(s2.points, s1.points),
+                       (s2.cam_poses[:16], s1.cam_poses)])
+    ba_err_gap = abs(float(re2) / float(re1) - 1.0)
+    _gate("sharded_ba_step", ba_gap, 1e-8)
+    _gate("sharded_ba_step error", ba_err_gap, 1e-8)
+    say(f"[26] (d) shard_graph: one LM step of the {DIST_GRAPH_POSES}-pose "
+        f"graph (lambda 1e-4, PCG to 1e-10) on {mesh.size} ranks against "
+        f"the single-device step: poses {gap:.2e}, error {err_gap:.1e} "
+        f"relative (limits 1e-10); sharded_ba_step against ba_try_step on "
+        f"the 16-camera ring: state {ba_gap:.2e}, error {ba_err_gap:.1e} "
+        f"(1e-8)")
+
+
+def dist_rank(rank, port, tmp):
+    """One rank of phase 26: join the group (gloo when the ranks outnumber
+    the cards; every rank on cuda:0 here), run (a)-(d); rank 0 prints and
+    writes (b)'s record to TMP/dist.json."""
+    torch.set_num_threads(1)
+    bootstrap.maybe_init_distributed(f"localhost:{port}", DIST_RANKS, rank)
+    try:
+        mesh = pmesh.make_mesh()
+
+        def say(line):
+            if rank == 0:
+                print(line, flush=True)
+        say(f"[26] {mesh.size} ranks, backend {dist.get_backend()}, every "
+            f"rank on {mesh.device} ({torch.cuda.get_device_name(0)}): the "
+            f"all-reduces go through host memory")
+        dist_parity(mesh, say)
+        rec = dist_main(mesh, say)
+        dist_schur_phase(mesh, say)
+        dist_graph(mesh, say)
+        if rank == 0:
+            with open(f"{tmp}/dist.json", "w") as f:
+                json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_child(tmp):
+    """Phase 26 in a seventh process beside phases 16-17: spawns
+    DIST_RANKS ranks once and runs every part in them; a rank that fails
+    makes this process exit non-zero. One CPU thread a rank."""
+    t0 = time.perf_counter()
+    _build.build()              # built by the main process; ranks load it
+    torch.multiprocessing.spawn(dist_rank, args=(_free_port(), tmp),
+                                nprocs=DIST_RANKS, join=True)
+    print(f"[clock] phase 26's process: {_seconds_since(t0):.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3228,7 +3547,7 @@ def main():
     phase_build()
     record = phase_kernel(dev)
     phase_parity(dev)
-    launches = phase_main(dev)
+    launches, ba_error = phase_main(dev)
     phase_pose_parity(dev)
     phase_se3_parity(dev)
     batch_optimum, pose_its = phase_pose_main(dev)
@@ -3276,10 +3595,17 @@ def main():
             clock("24 (the hybrid stream)")
             with open(f"{tmp}/hybrid.json") as f:
                 hybrid_launches = json.load(f)["chain_factorize_launches"]
+            join_child(children[5])
+            clock("26 (the distributed paths)")
+            with open(f"{tmp}/dist.json") as f:
+                dist_rec = json.load(f)
+            print(f"[26] (b) {DIST_RANKS} ranks on one card: final error "
+                  f"{dist_rec['err_final']:.6g} at {dist_rec['it_s']:.3f} "
+                  f"it/s; phase 5, one process: {ba_error:.6g}")
         finally:
             for _, proc, _ in children:
                 if proc.poll() is None:
-                    proc.kill()
+                    os.killpg(proc.pid, signal.SIGKILL)
                     proc.wait()
     chain_time_stream(dev, cap, d)
     print(card)
@@ -3290,7 +3616,11 @@ def main():
          "launches_from": "phase 5, the timed BA LM run",
          "launches_cm": cm_launches,
          "launches_cm_from": f"phase 23, the camera-major engine's "
-                             f"{CM_ITERS} iterations ({cm_tries} tries)"},
+                             f"{CM_ITERS} iterations ({cm_tries} tries)",
+         "launches_dist": dist_rec["launches_dist"],
+         "launches_dist_from": f"phase 26 (b), dist_pack_lm_run's "
+                               f"{DIST_ITERS} timed iterations, summed over "
+                               f"its {DIST_RANKS} ranks"},
         {"name": "chain_factorize", "route": "cuda",
          "source": CHAIN_SOURCE, "replaces": CHAIN_REPLACES,
          "launches": chain_launches, **chain_record,
@@ -3326,6 +3656,8 @@ if __name__ == "__main__":
             comparer_child(sys.argv[3])
         elif sys.argv[2] == "hybrid":
             hybrid_child(sys.argv[3])
+        elif sys.argv[2] == "dist":
+            dist_child(sys.argv[3])
         else:
             parity_child(sys.argv[3])
     else:

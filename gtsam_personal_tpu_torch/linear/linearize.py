@@ -14,6 +14,7 @@ per-batch block tensors. Its accumulations are `index_add_` /
 atomic adds, so a float32 sum may differ in its last bits from run to run.
 """
 
+import threading
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -21,6 +22,13 @@ import torch
 from gtsam_personal_tpu_torch.core import manifolds
 from gtsam_personal_tpu_torch.core.values import Layout, Values
 from gtsam_personal_tpu_torch.linear.noise import whiten_system
+
+# torch's forward-mode AD levels are global to the process, not to a
+# thread: two threads inside `jacfwd` at once exit each other's level.
+# Ranks of a distributed solve run as threads in one process
+# (tests/test_torch_parallel.py), so the linearization is taken one thread
+# at a time.
+_JACFWD_LOCK = threading.Lock()
 
 
 class LinearBatch:
@@ -164,7 +172,8 @@ def linearize_batch(batch, values: Values) -> LinearBatch:
             zeros, points, meas)
         return r, Js
 
-    r, Js = torch.func.vmap(one)(pts, batch.meas)
+    with _JACFWD_LOCK:
+        r, Js = torch.func.vmap(one)(pts, batch.meas)
     # Forward-mode tangents of a 0-dim tensor that meets a Python number
     # (`0.5 * w` on one element's angle) come out as float64 whatever the
     # primal's dtype: bring every Jacobian back to the residual's dtype.

@@ -49,11 +49,16 @@ def solve_dense(lin: GaussianGraph, layout: Layout, lam=0.0,
     return layout.unflatten(delta)
 
 
-def _block_jacobi_preconditioner(lin: GaussianGraph, lam, diag_damping):
+def _block_jacobi_preconditioner(lin: GaussianGraph, lam, diag_damping,
+                                 group=None):
     """The M^{-1} apply function from the per-variable (d, d) Hessian
-    blocks, each damped and factored once."""
+    blocks, each damped and factored once. With `group`, `lin` is this
+    rank's share of the factors and the blocks are summed over the ranks."""
+    blocks = lin.hessian_block_diagonal()
+    if group is not None:
+        blocks = group.psum_tree(blocks)
     chol = {}
-    for g, B in lin.hessian_block_diagonal().items():
+    for g, B in blocks.items():
         eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
         if diag_damping is not None:
             B = B + lam * torch.diag_embed(diag_damping[g])
@@ -68,9 +73,13 @@ def _block_jacobi_preconditioner(lin: GaussianGraph, lam, diag_damping):
     return apply
 
 
-def make_damped_matvec(lin: GaussianGraph, lam, diag_damping):
+def make_damped_matvec(lin: GaussianGraph, lam, diag_damping, group=None):
+    """x -> (J^T J + lam D) x; with `group`, `lin` is this rank's share of
+    the factors and J^T J x is summed over the ranks."""
     def matvec(x):
         hx = lin.hessian_vector_product(x)
+        if group is not None:
+            hx = group.psum_tree(hx)
         if diag_damping is not None:
             return {g: hx[g] + lam * diag_damping[g] * x[g] for g in hx}
         return {g: hx[g] + lam * x[g] for g in hx}
@@ -131,10 +140,20 @@ def pcg(matvec, b: Dict[str, torch.Tensor], precond=None, maxiter=250,
 
 
 def solve_pcg(lin: GaussianGraph, lam=0.0, diag_damping=None,
-              maxiter=250, tol=1e-8):
+              maxiter=250, tol=1e-8, group=None):
     """PCG solve of the (damped) normal equations with block-Jacobi
-    preconditioning; returns the tangent-dict update delta."""
-    b = tree_scale(lin.gradient_at_zero(), -1.0)
-    matvec = make_damped_matvec(lin, lam, diag_damping)
-    precond = _block_jacobi_preconditioner(lin, lam, diag_damping)
+    preconditioning; returns the tangent-dict update delta.
+
+    `group` (parallel/mesh.py:Mesh) solves a system whose factors are
+    dealt over ranks, `lin` holding this rank's share (mesh.shard_graph):
+    the gradient, every matvec and the preconditioner's blocks are summed
+    over the ranks, one all-reduce each, and the CG vectors are the same on
+    every rank (the explicit form of the JAX package's GSPMD step over a
+    sharded graph). `diag_damping`, if given, is already the sum."""
+    g = lin.gradient_at_zero()
+    if group is not None:
+        g = group.psum_tree(g)
+    b = tree_scale(g, -1.0)
+    matvec = make_damped_matvec(lin, lam, diag_damping, group)
+    precond = _block_jacobi_preconditioner(lin, lam, diag_damping, group)
     return pcg(matvec, b, precond, maxiter=maxiter, tol=tol)

@@ -235,7 +235,8 @@ def _pt_sum(pl: BALayout, x):
     return x.new_zeros(x.shape[0], pl.P).index_add_(1, pl.pt_of, x)
 
 
-def _pcg(matvec, b, precond, maxiter, tol, check_every=None, side0=None):
+def _pcg(matvec, b, precond, maxiter, tol, check_every=None, side0=None,
+         dist=None):
     """Preconditioned CG over tensors of any shape (vdot over all entries),
     with the JAX `pcg`'s guards: alpha = 0 on non-positive curvature, safe
     divisions. Returns (x, side, iterations) with `iterations` a 0-d device
@@ -250,27 +251,36 @@ def _pcg(matvec, b, precond, maxiter, tol, check_every=None, side0=None):
 
     With `side0`, matvec(p) returns (A p, s(p)) for a linear s, and `side`
     accumulates sum alpha_k s(p_k) = s(x) (ba_pack's fused landmark
-    back-substitution); otherwise matvec returns A p and side is None."""
+    back-substitution); otherwise matvec returns A p and side is None.
+
+    `dist` (parallel/dist_ba.py:RankSums) makes every dot product a sum over
+    the ranks, b holding this rank's cameras: one all-reduce a dot, as the
+    JAX `psum` of each (parallel/dist_ba_pack.py:473 of the JAX package).
+    Every rank then reads the same stop flag."""
+    def dots(*pairs):
+        sums = [(u * v).sum() for u, v in pairs]
+        return sums if dist is None else dist.sums(sums)
+
     x = torch.zeros_like(b)
     rr = b
     z = precond(b)
     p = z
-    rz = (b * z).sum()
-    thr = (tol ** 2) * (b * b).sum()
+    rz, bb = dots((b, z), (b, b))
+    thr = (tol ** 2) * bb
     side = side0
     iters = torch.zeros((), dtype=torch.int64, device=b.device)
     for k in range(maxiter):
-        active = (rr * rr).sum() > thr
+        active = dots((rr, rr))[0] > thr
         if check_every and k % check_every == 0 and not bool(active):
             break
         out = matvec(p)
         Ap, sp = out if side0 is not None else (out, None)
-        pAp = (p * Ap).sum()
+        pAp, = dots((p, Ap))
         alpha = torch.where(pAp > 0, rz / torch.where(pAp != 0, pAp, 1.0),
                             0.0)
         rr_n = rr - alpha * Ap
         z = precond(rr_n)
-        rz_n = (rr_n * z).sum()
+        rz_n, = dots((rr_n, z))
         beta = rz_n / torch.where(rz != 0, rz, 1.0)
         x = torch.where(active, x + alpha * p, x)
         if side0 is not None:
@@ -290,24 +300,30 @@ def pcg(matvec, b, precond, maxiter, tol, check_every=8):
     return _pcg(matvec, b, precond, maxiter, tol, check_every)[0]
 
 
-def _reduce_cache(pl: BALayout, lin):
+def _reduce_cache(pl: BALayout, lin, dist=None):
     """Lambda-independent reductions of a linearization, kept beside it in
     the LM loop (rejected lambda tries reuse them):
       Hpp_raw [9, P]  undamped landmark blocks, sum Jp^T Jp
       gc      [9, C]  camera gradient, sum Jc^T r
       gp      [3, P]  landmark gradient, sum Jp^T r
-      Hcc     [81, C] camera diagonal blocks, sum Jc^T Jc"""
+      Hcc     [81, C] camera diagonal blocks, sum Jc^T Jc
+    With `dist` (a rank's share of a distributed problem,
+    parallel/dist_ba.py:RankSums) the landmark rows seen from other ranks
+    too are summed over the ranks, [Hpp_raw; gp] in one all-reduce; a
+    rejected try reuses them with the rest."""
     r, Jc, Jp = lin
     M = r.shape[1]
     Hpp_raw = _pt_sum(pl, (Jp[:, :, None] * Jp[:, None]).sum(0).reshape(9, M))
     gc = _cam_sum(pl, (Jc * r[:, None]).sum(0))
     gp = _pt_sum(pl, (Jp * r[:, None]).sum(0))
     Hcc = _cam_sum(pl, (Jc[:, :, None] * Jc[:, None]).sum(0).reshape(81, M))
+    if dist is not None:
+        Hpp_raw, gp = dist.boundary(torch.cat([Hpp_raw, gp])).split([9, 3])
     return Hpp_raw, gc, gp, Hcc
 
 
 def _solve_from_lin(pl: BALayout, lin, red, lam, cg_maxiter=100,
-                    cg_tol=1e-6, check_every=None, probe=None):
+                    cg_tol=1e-6, check_every=None, probe=None, dist=None):
     """The lambda-dependent part of the step, from a (possibly cached)
     linearization: the reference's tryLambda reuses one linearization
     across rejected lambda tries (LevenbergMarquardtOptimizer.cpp:121).
@@ -320,7 +336,14 @@ def _solve_from_lin(pl: BALayout, lin, red, lam, cg_maxiter=100,
     `cg_maxiter` masked iterations and reads nothing back; the camera-major
     engine passes 8. `probe(label, **info)`, when given, is called after
     the right-hand side and preconditioner ("precond") and after CG ("pcg",
-    iterations=0-d tensor): the hook of a timing split."""
+    iterations=0-d tensor): the hook of a timing split.
+
+    `dist` (parallel/dist_ba.py:RankSums, with `red` from _reduce_cache
+    with it) solves a rank's share of a distributed problem: `pl` holds the
+    rank's rows, its cameras and the landmarks they see. Each Schur matvec
+    sums the boundary landmarks' E^T a over the ranks in one all-reduce and
+    _pcg sums its dot products; the returned steps are this rank's
+    cameras' and landmarks'."""
     r, Jc, Jp = lin
     Hpp_raw, gc, gp, Hcc = red
     M = r.shape[1]
@@ -349,6 +372,8 @@ def _solve_from_lin(pl: BALayout, lin, red, lam, cg_maxiter=100,
         fused back-substitution accumulator."""
         a = cam_apply(x)
         t = pt_reduce(a)
+        if dist is not None:
+            t = dist.boundary(t)
         y = cam_reduce(a - pt_apply(pt_solve(t)))
         return y + lam * x, t
 
@@ -370,7 +395,7 @@ def _solve_from_lin(pl: BALayout, lin, red, lam, cg_maxiter=100,
     if probe is not None:
         probe("precond")
     x, tacc, iters = _pcg(schur_matvec_t, b_rhs, precond, cg_maxiter,
-                          cg_tol, check_every, torch.zeros_like(gp))
+                          cg_tol, check_every, torch.zeros_like(gp), dist)
     xp = pt_solve(-gp - tacc)
     if probe is not None:
         probe("pcg", iterations=iters)

@@ -122,7 +122,13 @@ def test_port_imports_no_jax():
             "gtsam_personal_tpu_torch.utils.dot",
             "gtsam_personal_tpu_torch.tools.sfm_example_bal",
             "gtsam_personal_tpu_torch.tools.discrete_examples",
-            "gtsam_personal_tpu_torch.tools.hybrid_city10000"} <= set(mods)
+            "gtsam_personal_tpu_torch.tools.hybrid_city10000",
+            "gtsam_personal_tpu_torch.parallel.bootstrap",
+            "gtsam_personal_tpu_torch.parallel.mesh",
+            "gtsam_personal_tpu_torch.parallel.dist_ba",
+            "gtsam_personal_tpu_torch.parallel.dist_ba_pack",
+            "gtsam_personal_tpu_torch.parallel.ba_sharded",
+            "gtsam_personal_tpu_torch.parallel.dist_schur"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
