@@ -5,14 +5,14 @@
 
 Phases, numbered as in the order they were added; any failure raises and
 the script exits non-zero. They run in this order: 1-8, 10-14, 19, 21,
-23, 24's optimize_lm_jit, then 16 and 17 beside six more processes of
+23, 24's optimize_lm_jit, then 16 and 17 beside seven more processes of
 this script (`--child parity TMP`: phases 9 and 15, which time nothing;
 `--child smart TMP`: phase 18's full-size stream; `--child breadth TMP`:
 phase 19's card == CPU checks and phases 20, 22 and 25's card == CPU
 checks, which time nothing; `--child comparer TMP`: phase 22's
 solver_comparer run; `--child hybrid TMP`: phase 24's hybrid stream;
-`--child dist TMP`: phase 26, which spawns its ranks), then the rest of
-18; the
+`--child dist TMP`: phase 26, which spawns its ranks; `--child tools
+TMP`: phase 27), then the rest of 18; the
 kernels are timed before the other processes start or after they end:
   1. require CUDA (there is no CPU fallback) and print the card's name and
      power limit as nvidia-smi reports them;
@@ -250,18 +250,36 @@ kernels are timed before the other processes start or after they end:
      solve of phase 7's graph, float64, lambda 1e-3, against
      solve_partitioned (1e-9), ms a call of each and collective_overhead;
      (d) one shard_graph LM step of phase 6's 300-pose graph against the
-     single-device step (1e-10) and sharded_ba_step against ba_try_step on
-     the 16-camera ring (1e-8).
+     single-device step, PCG run to convergence (1e-10), and
+     sharded_ba_step against ba_try_step on the 16-camera ring (1e-8).
+ 27. the seven tools of examples/ that came last (tools/stereo_vo_large,
+     victoria_park, range_isam_plaza2, visual_isam2, pose2_m3500,
+     view_graph, parity_suite), in `--child tools TMP`: on the card at
+     full size on seeded stand-ins of their files (write_tool_data: VO
+     at 25 poses, 8189 stereo factors, 4700 landmarks; Victoria Park at
+     6970 poses and 151 landmarks, parts <= 256; Plaza2 at 4090 steps and
+     1816 ranges; M3500 at 3500 poses with "schur"; every parity-suite
+     subcommand), each under the JAX example's own gate, with its
+     seconds; visual_isam2 at the example's defaults and timed at
+     TOOL_VIS_POSES x TOOL_VIS_POINTS (40 x 32); preint_tangent's
+     launches in the parity suite (combined_imu, a launch a keyframe),
+     then the kernel against its plain version on those 6 segments
+     (float64, 1e-10 of the largest entry); then card == CPU at the parity
+     tests' cut sizes (tool_lines_gap, tool_record_gap: float64 errors to
+     1e-9 relative, variables to 1e-8; the ISAM2 streams with CG run to
+     convergence, ISAM2_CONVERGED).
 
 The last two lines are a JSON record of the kernels ({"kernels": [...]},
 each with the launch count from its main path, named in its
-`launches_from`; landmark_block_solve adds `launches_dist`, phase 26's)
-and {"ok": true, "device": {...}}.
+`launches_from`; landmark_block_solve adds `launches_dist`, phase 26's;
+preint_tangent `launches_tools`, phase 27's) and {"ok": true, "device":
+{...}}.
 """
 
 import json
 import math
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -285,6 +303,7 @@ from gtsam_personal_tpu_torch.core.graph import (FactorBatch, FactorGraph,
 from gtsam_personal_tpu_torch.core.values import (Layout, Values, tree_vdot,
                                                   values_from_numpy)
 from gtsam_personal_tpu_torch.geometry import se2, se3, so3
+from gtsam_personal_tpu_torch.geometry import fundamental as fundamental_mod
 from gtsam_personal_tpu_torch.linear import (conditional, diagnostics, kalman,
                                              lpqp, mlschur, sampler, schur,
                                              solvers, subgraph)
@@ -328,6 +347,10 @@ from gtsam_personal_tpu_torch.tools import discrete_examples as discrete_tool
 from gtsam_personal_tpu_torch.tools import hybrid_city10000 as hybrid_tool
 from gtsam_personal_tpu_torch.tools import sfm_example_bal as sfm_tool
 from gtsam_personal_tpu_torch.tools import isam2_smart_factor as smart_tool
+from gtsam_personal_tpu_torch.tools import (parity_suite, pose2_m3500,
+                                            range_isam_plaza2,
+                                            stereo_vo_large, victoria_park,
+                                            view_graph, visual_isam2)
 from gtsam_personal_tpu_torch.utils import serialization
 from gtsam_personal_tpu_torch.tools.profile_isam2 import (
     ISAM_N, ISAM_PARAMS, ISAM_UPDATE_EVERY)
@@ -992,11 +1015,18 @@ def phase_chain(dev):
     return rec
 
 
+# Phase 9's CG runs to convergence (at most 117 iterations on the CPU):
+# cut at 1e-10 (at most 107) it ends 7.4e-13 from convergence, so two
+# streams whose sums differ in order and stop an iteration apart left the
+# checkpoint's 1e-12 gate (1.01e-12 once, 7.73e-13 once on the H100)
+ISAM_SMALL_CG = {"cg_maxiter": 300, "cg_tol": 1e-14}
+
+
 def _isam_small(dev, data):
     """The small float64 stream of phase 9 through an engine on `dev`:
     update records, then 20 poses marginalized and two more updates."""
     isam = profile_isam2.make_engine(data, device=dev, dtype=torch.float64,
-                                     cg_maxiter=300, cg_tol=1e-10)
+                                     **ISAM_SMALL_CG)
     recs = profile_isam2.run_stream(isam, data)
     out = [([r[2] for r in recs], [r[3] for r in recs],
             isam.estimate_array("se2"), isam.error())]
@@ -1037,8 +1067,8 @@ def phase_isam_parity(dev):
               f"{np.abs(a[2] - b[2]).max():.2e} (atol 1e-8), error "
               f"{a[3]:.10g} (rel 1e-9)")
     print(f"[9] {n}-pose float64 stream, {len(data['ij'])} measurements, "
-          f"chain:se2, CG to 1e-10; 20 poses marginalized; "
-          f"chain_factorize.launches on the card = {launches}")
+          f"chain:se2, CG to {ISAM_SMALL_CG['cg_tol']:g}; 20 poses "
+          f"marginalized; chain_factorize.launches on the card = {launches}")
     return data, card[0][2:]
 
 
@@ -1112,7 +1142,7 @@ def phase_checkpoint(dev, data, ref, tmp):
     card, against the uninterrupted card engine `ref` (estimates, error);
     then an lm_run restarted through save_lm_carry / load_lm_carry."""
     isam = profile_isam2.make_engine(data, device=dev, dtype=torch.float64,
-                                     cg_maxiter=300, cg_tol=1e-10)
+                                     **ISAM_SMALL_CG)
     profile_isam2.run_stream(isam, data, 0, 100)
     path = f"{tmp}/isam2_update100.npz"
     t0 = time.perf_counter()
@@ -1402,6 +1432,287 @@ def write_imu_gps_csv(path, n_fixes, seed, samples_per_fix=200):
     np.savez(f"{path}.truth.npz", positions=pos, rotations=rot,
              velocities=vel, bias=bias)
     return pos
+
+
+# the stand-ins of phase 27's data files: the counts are the JAX examples'
+# (their docstrings and comments), the scenes seeded
+VO_POSES, VO_FACTORS, VO_LANDMARKS = 25, 8189, 4700
+VO_CAL = np.array([700.0, 700.0, 0.0, 640.0, 360.0, 0.5])  # fx fy s u0 v0 b
+VO_PIXEL_SIGMA = 0.5
+
+
+def _fmt_rows(rows):
+    return "".join(" ".join(f"{x:.17g}" for x in r) + "\n" for r in rows)
+
+
+def write_vo_large(dir, seed=0, n_poses=VO_POSES, n_factors=VO_FACTORS,
+                   n_landmarks=VO_LANDMARKS):
+    """Write seeded stand-ins of the reference's VO_calibration.txt,
+    VO_camera_poses_large.txt and VO_stereo_factors_large.txt into `dir`;
+    returns the true poses [n, 3, 4] and landmarks [m, 3].
+
+    The counts are examples/stereo_vo_large.py:3-5's: 25 poses, 8189
+    stereo factors, ~4700 landmarks (4700 here). A stereo camera (VO_CAL,
+    baseline 0.5 m) drives 1 m a frame along a gentle curve; each landmark
+    is seen by 1-3 consecutive frames (track lengths fixed by the counts),
+    6-40 m ahead of its first. A factor line is `pose_id landmark_id uL uR
+    v X Y Z`: the pixels with VO_PIXEL_SIGMA noise and X Y Z their
+    camera-frame triangulation, as the recorded file has it. The pose
+    lines (`id` and the 4x4 wTc row-major) are the truth perturbed by
+    0.002 rad and 0.02 m, the first exact."""
+    rng = np.random.default_rng(seed)
+    fx, fy, _, u0, v0, b = VO_CAL
+    yaw = 0.02 * np.arange(n_poses)
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.zeros((n_poses, 3, 3))       # about the camera's y (down) axis
+    R[:, 0, 0], R[:, 0, 2], R[:, 1, 1] = c, s, 1.0
+    R[:, 2, 0], R[:, 2, 2] = -s, c
+    t = np.concatenate([np.zeros((1, 3)), np.cumsum(R[:-1, :, 2], 0)])
+    extra = n_factors - n_landmarks
+    n3 = max(extra // 6, extra - n_landmarks)
+    n2 = extra - 2 * n3
+    lengths = rng.permutation(np.r_[np.ones(n_landmarks - n2 - n3, int),
+                                    np.full(n2, 2), np.full(n3, 3)])
+    first = rng.integers(0, n_poses - lengths + 1)
+    Z = rng.uniform(6.0, 40.0, n_landmarks)
+    pc0 = np.stack([rng.uniform(-0.7, 0.7, n_landmarks) * Z,
+                    rng.uniform(-0.25, 0.25, n_landmarks) * Z, Z], 1)
+    pts = np.einsum("nij,nj->ni", R[first], pc0) + t[first]
+    lm_ids = 10000 + rng.permutation(n_landmarks)
+    obs_l = np.repeat(np.arange(n_landmarks), lengths)
+    obs_x = first[obs_l] + (np.arange(len(obs_l))
+                            - np.repeat(np.cumsum(lengths) - lengths,
+                                        lengths))
+    order = np.lexsort((rng.random(len(obs_l)), obs_x))
+    obs_l, obs_x = obs_l[order], obs_x[order]
+    pc = np.einsum("nji,nj->ni", R[obs_x], pts[obs_l] - t[obs_x])
+    assert pc[:, 2].min() > 1.0
+    uv = np.stack([fx * pc[:, 0] / pc[:, 2] + u0,
+                   fx * (pc[:, 0] - b) / pc[:, 2] + u0,
+                   fy * pc[:, 1] / pc[:, 2] + v0], 1)
+    uv += rng.normal(scale=VO_PIXEL_SIGMA, size=uv.shape)
+    Zm = fx * b / (uv[:, 0] - uv[:, 1])
+    xyz = np.stack([(uv[:, 0] - u0) * Zm / fx, (uv[:, 2] - v0) * Zm / fy,
+                    Zm], 1)
+    dR = so3.expmap(torch.tensor(rng.normal(scale=0.002,
+                                            size=(n_poses, 3)))).numpy()
+    Rf = np.einsum("nij,njk->nik", R, dR)
+    tf = t + rng.normal(scale=0.02, size=t.shape)
+    Rf[0], tf[0] = R[0], t[0]
+    mats = np.zeros((n_poses, 4, 4))
+    mats[:, :3, :3], mats[:, :3, 3], mats[:, 3, 3] = Rf, tf, 1.0
+    with open(os.path.join(dir, "VO_calibration.txt"), "w") as f:
+        f.write(_fmt_rows([VO_CAL]))
+    with open(os.path.join(dir, "VO_camera_poses_large.txt"), "w") as f:
+        f.write(_fmt_rows(np.c_[np.arange(1, n_poses + 1),
+                                mats.reshape(n_poses, 16)]))
+    with open(os.path.join(dir, "VO_stereo_factors_large.txt"), "w") as f:
+        f.write(_fmt_rows(np.c_[obs_x + 1, lm_ids[obs_l], uv, xyz]))
+    return np.concatenate([R, t[:, :, None]], 2), pts
+
+
+# victoria_park.txt: ~6970 poses and 151 landmarks in one id space, ~21k
+# tangent dimensions (examples/victoria_park.py:7-9, :118-120)
+VICTORIA_POSES, VICTORIA_LANDMARKS = 6970, 151
+VICTORIA_ODO_SIGMAS = np.array([0.02, 0.01, 0.002])     # x, y, theta
+VICTORIA_V1 = 0.04          # LANDMARK x-variance: range std 0.2 m
+
+
+def write_victoria_park(path, seed=0, n_poses=VICTORIA_POSES,
+                        n_landmarks=VICTORIA_LANDMARKS):
+    """Write a seeded stand-in of the reference's victoria_park.txt;
+    returns the true poses [n, 3] and landmarks [m, 2].
+
+    A car drives n_poses steps of 0.5 m through a park of radius ~70 m,
+    steering back towards its middle; n_landmarks trees stand 5-20 m from
+    seeded poses of the drive. At each pose, with probability 0.5, it
+    sights one tree in range (< 25 m, in front), and every tree is sighted
+    from the pose it was placed from. Lines in time order: `LANDMARK pose
+    id x y` (local x y from a bearing and range with std sqrt(V1 / 10)
+    and sqrt(V1), the covariance `V1 0 V1`), then `ODOMETRY i j dx dy dth`
+    (the true relative pose with VICTORIA_ODO_SIGMAS noise) and its
+    upper-triangular covariance (xx xy xt yy yt tt). Poses and trees share
+    one id space, trees at seeded ids: the ids odometry never touches, as
+    in the reference's file (examples/victoria_park.py:7-9)."""
+    rng = np.random.default_rng(seed)
+    truth = np.zeros((n_poses, 3))
+    for i in range(1, n_poses):
+        x, y, th = truth[i - 1]
+        away = np.hypot(x, y) - 55.0
+        back = np.arctan2(-y, -x) - th
+        steer = 0.03 * np.sin(0.004 * i) + 0.01 * np.clip(away, 0, 30) / 30 \
+            * np.sign(np.sin(back)) + rng.normal(scale=0.01)
+        th = th + steer
+        truth[i] = [x + 0.5 * np.cos(th), y + 0.5 * np.sin(th), th]
+    T = torch.tensor(truth)
+    odo = se2.between(T[:-1], T[1:]).numpy()
+    odo += rng.normal(size=odo.shape) * VICTORIA_ODO_SIGMAS
+    anchor = np.sort(rng.choice(n_poses, n_landmarks, replace=False))
+    rr, bb = rng.uniform(5, 20, n_landmarks), rng.uniform(-1, 1, n_landmarks)
+    lms = se2.transform_from(T[anchor], torch.tensor(
+        np.stack([rr * np.cos(bb), rr * np.sin(bb)], 1))).numpy()
+    sight = [[] for _ in range(n_poses)]
+    for j, i in enumerate(anchor):
+        sight[i].append(j)
+    local = se2.transform_to(T[:, None, :], torch.tensor(lms)[None]).numpy()
+    dist = np.linalg.norm(local, axis=2)
+    visible = (dist < 25.0) & (local[:, :, 0] > 0)
+    pick = rng.random(n_poses) < 0.5
+    choice = rng.random(n_poses)
+    for i in np.where(pick)[0]:
+        vis = np.where(visible[i])[0]
+        if len(vis):
+            j = vis[int(choice[i] * len(vis))]
+            if j not in sight[i]:
+                sight[i].append(j)
+    ids = np.arange(n_poses + n_landmarks)
+    lm_id = np.sort(rng.choice(ids[1:], n_landmarks, replace=False))
+    pose_id = np.setdiff1d(ids, lm_id)
+    bstd, rstd = np.sqrt(VICTORIA_V1 / 10), np.sqrt(VICTORIA_V1)
+    cov6 = np.r_[VICTORIA_ODO_SIGMAS[0] ** 2, 0, 0,
+                 VICTORIA_ODO_SIGMAS[1] ** 2, 0, VICTORIA_ODO_SIGMAS[2] ** 2]
+    lines = []
+    for i in range(n_poses):
+        for j in sight[i]:
+            bear = np.arctan2(local[i, j, 1], local[i, j, 0]) \
+                + rng.normal(scale=bstd)
+            rng_m = dist[i, j] + rng.normal(scale=rstd)
+            lines.append(f"LANDMARK {pose_id[i]} {lm_id[j]} "
+                         f"{rng_m * np.cos(bear):.17g} "
+                         f"{rng_m * np.sin(bear):.17g} "
+                         f"{VICTORIA_V1:.17g} 0 {VICTORIA_V1:.17g}")
+        if i + 1 < n_poses:
+            lines.append(f"ODOMETRY {pose_id[i]} {pose_id[i + 1]} "
+                         + " ".join(f"{v:.17g}" for v in odo[i]) + " "
+                         + " ".join(f"{v:.17g}" for v in cov6))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return truth, lms
+
+
+# Plaza2_DR.txt / Plaza2_TD.txt: 4090 odometry steps, 1816 ranges to 4
+# beacons (examples/range_isam_plaza2.py:3-8)
+PLAZA2_STEPS, PLAZA2_RANGES = 4090, 1816
+PLAZA2_BEACONS = np.array([[-55.0, 5.0], [-5.0, 5.0], [-5.0, 55.0],
+                           [-55.0, 55.0]])
+PLAZA2_BEACON_IDS = np.array([0, 1, 6, 7])
+PLAZA2_POSE0 = np.array([-34.2086489999201, 45.3007639991120,
+                         np.pi - 2.021089])
+
+
+def write_plaza2(dir, seed=0, n_steps=PLAZA2_STEPS, n_ranges=PLAZA2_RANGES):
+    """Write seeded stand-ins of the reference's Plaza2_DR.txt (rows `t
+    delta_distance delta_heading`) and Plaza2_TD.txt (rows `t 2 beacon
+    range`) into `dir`; returns the true poses [n_steps + 1, 3].
+
+    A robot starts at the example's first pose and drives 0.3 m every 0.2
+    s through a 50 m square, steering back towards its middle; its
+    odometry carries noise of 0.01 m and 0.002 rad a step. The ranges
+    (noise 0.1 m) are taken at seeded times to one of the four beacons
+    PLAZA2_BEACONS (ids PLAZA2_BEACON_IDS), each from the pose the
+    example's loop attaches it to: the first whose DR time is not
+    earlier."""
+    rng = np.random.default_rng(seed)
+    truth = np.zeros((n_steps + 1, 3))
+    truth[0] = PLAZA2_POSE0
+    dist = np.full(n_steps, 0.3)
+    dhead = np.zeros(n_steps)
+    center = PLAZA2_BEACONS.mean(0)
+    for i in range(n_steps):
+        x, y, th = truth[i]
+        away = np.hypot(x - center[0], y - center[1]) - 15.0
+        back = np.arctan2(center[1] - y, center[0] - x) - th
+        dhead[i] = 0.04 * np.sin(0.01 * i) + 0.03 * np.clip(away, 0, 10) \
+            / 10 * np.sign(np.sin(back)) + rng.normal(scale=0.01)
+        truth[i + 1] = se2.compose(torch.tensor(truth[i]), torch.tensor(
+            [dist[i], 0.0, dhead[i]])).numpy()
+    t = 100.0 + 0.2 * np.arange(1, n_steps + 1)
+    dr = np.c_[t, dist + rng.normal(scale=0.01, size=n_steps),
+               dhead + rng.normal(scale=0.002, size=n_steps)]
+    td_t = np.sort(rng.uniform(t[0] - 0.1, t[-1], n_ranges))
+    pose = 1 + np.searchsorted(t, td_t)     # the first step with t >= td_t
+    beacon = rng.integers(0, len(PLAZA2_BEACONS), n_ranges)
+    rng_m = np.linalg.norm(truth[pose, :2] - PLAZA2_BEACONS[beacon], axis=1)
+    td = np.c_[td_t, np.full(n_ranges, 2.0), PLAZA2_BEACON_IDS[beacon],
+               rng_m + rng.normal(scale=0.1, size=n_ranges)]
+    with open(os.path.join(dir, "Plaza2_DR.txt"), "w") as f:
+        f.write(_fmt_rows(dr))
+    with open(os.path.join(dir, "Plaza2_TD.txt"), "w") as f:
+        f.write(_fmt_rows(td))
+    return truth
+
+
+def write_noisy_toy_graph(path, seed=0):
+    """Write a stand-in of the reference's noisyToyGraph.txt with
+    slam/dataset.py:write_g2o_2d: 9 poses around a 4 m square (2 m steps,
+    a left turn after every second), odometry and two closures, (8, 0)
+    and (6, 2), with noise of (0.1 m, 0.1 m, 0.05 rad), the vertices the
+    composed noisy odometry. The parity suite's `lago` reads it with the
+    AUTO noise format (ROADMAP queue 3 C6), as the JAX subcommand does."""
+    rng = np.random.default_rng(seed)
+    n, sigmas = 9, (0.1, 0.1, 0.05)
+    truth = np.zeros((n, 3))
+    for i in range(1, n):
+        step = np.array([2.0, 0.0, np.pi / 2 if i % 2 == 0 else 0.0])
+        truth[i] = se2.compose(torch.tensor(truth[i - 1]),
+                               torch.tensor(step)).numpy()
+    T = torch.tensor(truth)
+    edges = [(i, i + 1) for i in range(n - 1)] + [(8, 0), (6, 2)]
+    ij = torch.tensor(edges)
+    meas = se2.between(T[ij[:, 0]], T[ij[:, 1]]).numpy()
+    meas += rng.normal(size=meas.shape) * np.asarray(sigmas)
+    verts = [truth[0]]
+    for m in meas[:n - 1]:
+        verts.append(se2.compose(torch.tensor(verts[-1]),
+                                 torch.tensor(m)).numpy())
+    gb = GraphBuilder()
+    for (i, j), m in zip(edges, meas):
+        F.add_between(gb, "se2", i, j, m, F.diag_noise(sigmas))
+    dataset.write_g2o_2d(path, values_from_numpy(
+        {"se2": np.stack(verts)}, device="cpu", dtype=torch.float64),
+        gb.build(device="cpu", dtype=torch.float64))
+    return truth
+
+
+def write_pose3_example(path, seed=0):
+    """Write a stand-in of the reference's pose3example.txt with
+    slam/dataset.py:write_g2o_3d: 5 poses (the file's count, SKILL.md) on
+    a loop, odometry and one closure with noise of (0.05 rad, 0.1 m), the
+    vertices the composed noisy odometry, as VERTEX_SE3:QUAT /
+    EDGE_SE3:QUAT lines."""
+    rng = np.random.default_rng(seed)
+    n, sig = 5, np.r_[np.full(3, 0.05), np.full(3, 0.1)]
+    ang = 2 * np.pi * np.arange(n) / n
+    Rz = so3.expmap(torch.tensor(np.stack([np.zeros(n), np.zeros(n), ang +
+                                           np.pi / 2], 1))).numpy()
+    pos = np.stack([3 * np.cos(ang), 3 * np.sin(ang), 0.3 * np.sin(2 * ang)],
+                   1)
+    T = torch.tensor(np.concatenate([Rz, pos[:, :, None]], 2))
+    edges = [(i, i + 1) for i in range(n - 1)] + [(n - 1, 0)]
+    ij = torch.tensor(edges)
+    meas = se3.compose(se3.between(T[ij[:, 0]], T[ij[:, 1]]), se3.expmap(
+        torch.tensor(rng.normal(size=(len(edges), 6)) * sig))).numpy()
+    verts = [T[0].numpy()]
+    for m in meas[:n - 1]:
+        verts.append(se3.compose(torch.tensor(verts[-1]),
+                                 torch.tensor(m)).numpy())
+    gb = GraphBuilder()
+    for (i, j), m in zip(edges, meas):
+        F.add_between(gb, "se3", i, j, m, F.diag_noise(sig))
+    dataset.write_g2o_3d(path, values_from_numpy(
+        {"se3": np.stack(verts)}, device="cpu", dtype=torch.float64),
+        gb.build(device="cpu", dtype=torch.float64), fmt="quat")
+    return T.numpy()
+
+
+def write_tool_data(dir, seed=0, **vo):
+    """All eight stand-ins of phase 27 in `dir` (the full-size ones unless
+    `vo` cuts the VO files: write_vo_large's keywords)."""
+    write_vo_large(dir, seed, **vo)
+    write_victoria_park(os.path.join(dir, "victoria_park.txt"), seed)
+    write_plaza2(dir, seed)
+    write_noisy_toy_graph(os.path.join(dir, "noisyToyGraph.txt"), seed)
+    write_pose3_example(os.path.join(dir, "pose3example.txt"), seed)
 
 
 def _ate3(values, truth):
@@ -1920,7 +2231,8 @@ CHILDREN = {"smart": "phase 18's full-size stream",
                        "and 25",
             "comparer": "phase 22's tools/solver_comparer.py run",
             "hybrid": "phase 24's hybrid City10000 stream",
-            "dist": "phase 26's distributed paths"}
+            "dist": "phase 26's distributed paths",
+            "tools": "phase 27's seven tools"}
 
 
 def start_child(kind, tmp):
@@ -3248,6 +3560,10 @@ DIST_RANKS = 4
 DIST_ITERS, DIST_CG = 10, 2     # phase 5's LM run
 DIST_SCHUR_LAM = 1e-3
 DIST_GRAPH_POSES = 300          # phase 6's graph, (d)'s sharded step
+# (d)'s PCG runs to convergence (~410 iterations): cut at 1e-10 (~364), the
+# two steps, whose sums differ in order, can stop an iteration apart, and
+# their iterates are then up to 2.1e-10 apart, above (d)'s 1e-10 gate
+DIST_GRAPH_TOL = 1e-14
 
 
 def _max_gap(pairs):
@@ -3459,10 +3775,10 @@ def dist_graph(mesh, say):
         DIST_GRAPH_POSES, seed=3, device=dev, dtype=torch.float64)
     lin = linearize(graph, initial)
     v1 = initial.retract(solvers.solve_pcg(lin, 1e-4, maxiter=1000,
-                                           tol=1e-10))
+                                           tol=DIST_GRAPH_TOL))
     e1 = float(graph.error(v1))
     v, e = pmesh.sharded_step(pmesh.shard_graph(graph, mesh), initial, 1e-4,
-                              mesh, maxiter=1000, tol=1e-10)
+                              mesh, maxiter=1000, tol=DIST_GRAPH_TOL)
     gap = _max_gap([(v["se2"], v1["se2"])])
     err_gap = abs(float(e) / e1 - 1.0)
     _gate("sharded_step", gap, 1e-10)
@@ -3480,11 +3796,11 @@ def dist_graph(mesh, say):
     _gate("sharded_ba_step", ba_gap, 1e-8)
     _gate("sharded_ba_step error", ba_err_gap, 1e-8)
     say(f"[26] (d) shard_graph: one LM step of the {DIST_GRAPH_POSES}-pose "
-        f"graph (lambda 1e-4, PCG to 1e-10) on {mesh.size} ranks against "
-        f"the single-device step: poses {gap:.2e}, error {err_gap:.1e} "
-        f"relative (limits 1e-10); sharded_ba_step against ba_try_step on "
-        f"the 16-camera ring: state {ba_gap:.2e}, error {ba_err_gap:.1e} "
-        f"(1e-8)")
+        f"graph (lambda 1e-4, PCG to {DIST_GRAPH_TOL:g}) on {mesh.size} "
+        f"ranks against the single-device step: poses {gap:.2e}, error "
+        f"{err_gap:.1e} relative (limits 1e-10); sharded_ba_step against "
+        f"ba_try_step on the 16-camera ring: state {ba_gap:.2e}, error "
+        f"{ba_err_gap:.1e} (1e-8)")
 
 
 def dist_rank(rank, port, tmp):
@@ -3517,6 +3833,313 @@ def _free_port():
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+# phase 27: the last seven tools of examples/
+TOOL_VIS_POSES, TOOL_VIS_POINTS = 40, 32    # visual_isam2's timed size
+# the parity tests' cut sizes (tests/test_torch_tools_{files,small}.py)
+TOOL_CUT_VO = {"n_factors": 400, "n_landmarks": 150}
+TOOL_CUT_VICTORIA, TOOL_CUT_PLAZA2, TOOL_CUT_M3500 = 800, 500, 600
+# CG run to convergence in the ISAM2 streams, where two implementations
+# are compared (ROADMAP queue 3 A7), as phases 9 and 18 run it
+ISAM2_CONVERGED = {"cg_maxiter": 300, "cg_tol": 1e-10}
+# Plaza2's limits (stream error and batch error relative, estimates in
+# m): the range-only problem is ill-conditioned (range sigma 100 m under
+# Tukey against odometry sigmas of 0.01-0.1), so two float64
+# factorizations of its batch start differ by 5e-12 to 1.1e-10 relative
+# in the error, and the stream, seeded with that start, ends 1e-8 to 5e-8
+# m apart (CPU against the JAX package, card against CPU) with CG run to
+# convergence: CG is not what separates them
+PLAZA2_LIMITS = (1e-7, 1e-8, 1e-6)
+# numbers below this are float noise at an exact optimum (spcg's 7e-30,
+# view_graph's 1e-18): two runs print different digits of zero
+TOOL_TINY = 1e-12
+# view_graph's edges one and two poses apart: the 96 transfer factors
+# leave the two-apart edges undetermined beyond ~1e-5 (LM moves them
+# along a direction of nearly zero curvature, by float noise over lambda),
+# so their errors are held to the example's gate, 1e-4
+VIEW_GRAPH_LOOSE = [(r"^  edge \(\d, \d\)", 1e-4)]
+_NUM = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?")
+TOOL_MODULES = {m.__name__.rsplit(".", 1)[1]: m for m in (
+    stereo_vo_large, victoria_park, range_isam_plaza2, visual_isam2,
+    pose2_m3500, view_graph, parity_suite)}
+
+
+def untimed(line):
+    """A tool's line with its wall time and rate masked."""
+    line = re.sub(r"\d+(?:\.\d+)? poses/s", "R poses/s", line)
+    return re.sub(r"\d+(?:\.\d+)?s\b", "Ts", line)
+
+
+def tool_lines_gap(got, want, loose=()):
+    """The pairs of lines that differ between two runs of a tool, wall
+    times masked. Numbers must print the same, but where both are below
+    TOOL_TINY in magnitude, or where the line matches a pattern of `loose`
+    [(regex, atol)] and the two are within atol."""
+    bad = [] if len(got) == len(want) else [(len(got), len(want))]
+    for g, w in zip(got, want):
+        g, w = untimed(g), untimed(w)
+        if g == w:
+            continue
+        gn, wn = _NUM.findall(g), _NUM.findall(w)
+        atol = max([a for rx, a in loose if re.search(rx, w)] + [0.0])
+        same = (_NUM.sub("#", g) == _NUM.sub("#", w) and len(gn) == len(wn)
+                and all(a == b or (abs(float(a)) < TOOL_TINY
+                                   and abs(float(b)) < TOOL_TINY)
+                        or abs(float(a) - float(b)) <= atol
+                        for a, b in zip(gn, wn)))
+        if not same:
+            bad.append((g, w))
+    return bad
+
+
+def _host_blocks(values):
+    return {g: values[g].cpu().numpy() for g in values.groups()}
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def tool_record_gap(name, a, b):
+    """(what, gap, limit) triples holding two runs of a tool: records of
+    run() on the card and on the CPU, or the port's against the JAX
+    example's numbers in the tests (the same keys). Direct solves in
+    float64: the error to 1e-9 relative and the variables to 1e-8; the
+    ISAM2 streams, CG run to convergence (ISAM2_CONVERGED): their error
+    to 1e-9 relative and estimates to 1e-8 (Plaza2: PLAZA2_LIMITS)."""
+    out = []
+    if name in ("stereo_vo_large", "victoria_park", "pose2_m3500"):
+        out.append(("error", _rel(a["error"], b["error"]), 1e-9))
+        va, vb = a["values"], b["values"]
+        for g in va:
+            out.append((g, float(np.abs(va[g] - vb[g]).max()), 1e-8))
+    elif name in ("range_isam_plaza2", "visual_isam2"):
+        lim = PLAZA2_LIMITS if name == "range_isam_plaza2" else (1e-9, 1e-9,
+                                                                  1e-8)
+        out.append(("error", _rel(a["error"], b["error"]), lim[0]))
+        out.append(("batch error", _rel(a["batch"], b["batch"]), lim[1]))
+        for g in a["estimate"]:
+            out.append((g, float(np.abs(a["estimate"][g]
+                                        - b["estimate"][g]).max()), lim[2]))
+    elif name == "view_graph":
+        out.append(("iterations", abs(a["iterations"] - b["iterations"]), 0))
+        out.append(("error", max(a["error"], b["error"]), TOOL_TINY))
+        # F up to its sign (the example's comparison)
+        Fa, Fb = np.asarray(a["F"])[:4], np.asarray(b["F"])[:4]
+        Fa = Fa * np.sign((Fa * Fb).sum((1, 2)))[:, None, None]
+        out.append(("edges one pose apart", float(np.abs(Fa - Fb).max()),
+                    1e-8))
+    return out
+
+
+def tool_numbers(name, rec):
+    """The numbers tool_record_gap holds, from a port tool's record, as
+    numpy."""
+    if name in ("stereo_vo_large", "victoria_park"):
+        return {"error": rec["error"], "values": _host_blocks(rec["values"])}
+    if name == "pose2_m3500":
+        r = rec["result"]
+        return {"error": r.error, "values": _host_blocks(r.values)}
+    if name in ("range_isam_plaza2", "visual_isam2"):
+        return {"error": rec["error"], "batch": rec["batch"].error,
+                "estimate": _host_blocks(rec["isam"].calculate_estimate())}
+    r = rec["result"]
+    return {"iterations": r.iterations, "error": r.error,
+            "F": fundamental_mod.fundamental_matrix(
+                r.values["fundamental"]).cpu().numpy()}
+
+
+def _tool_run(name, dev, data_dir, say_prefix=None, **kw):
+    """Run tools/<name>.py's run() on `dev` with its data in
+    `data_dir`/data, its lines printed after `say_prefix` (if one is
+    given); returns (record, lines, seconds)."""
+    mod = TOOL_MODULES[name]
+    lines = []
+    cwd = os.getcwd()
+    os.chdir(data_dir)
+    try:
+        t0 = time.perf_counter()
+        rec = mod.run(device=dev, say=lines.append, **kw)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    for s in lines if say_prefix else ():
+        print(f"{say_prefix} {s}")
+    return rec, lines, dt
+
+
+def _parity_gap(a, b):
+    """Largest gap between two parity-suite records of one subcommand."""
+    gaps = [0.0]
+    for k, v in a.items():
+        if k == "segments":
+            continue
+        x, y = np.asarray(v, dtype=np.float64), np.asarray(b[k],
+                                                           dtype=np.float64)
+        scale = max(1.0, float(np.abs(y).max()))
+        gaps.append(float(np.abs(x - y).max()) / scale)
+    return max(gaps)
+
+
+def phase_tools(dev, tmp):
+    """Phase 27: the seven tools on the card at full stand-in size under
+    their own gates, then card == CPU at the parity tests' cut sizes;
+    preint_tangent against its plain version on combined_imu's segments.
+    Returns the record written to TMP/tools.json."""
+    full, cut = f"{tmp}/tools_full", f"{tmp}/tools_cut"
+    for d in (full, cut):
+        os.makedirs(f"{d}/data")
+    t0 = time.perf_counter()
+    write_tool_data(f"{full}/data")
+    write_vo_large(f"{cut}/data", **TOOL_CUT_VO)
+    for name in ("victoria_park.txt", "noisyToyGraph.txt",
+                 "pose3example.txt", "Plaza2_DR.txt", "Plaza2_TD.txt"):
+        os.link(f"{full}/data/{name}", f"{cut}/data/{name}")
+    print(f"[27] stand-ins written in {_seconds_since(t0):.1f} s: VO "
+          f"{VO_POSES} poses / {VO_FACTORS} factors / {VO_LANDMARKS} "
+          f"landmarks, Victoria Park {VICTORIA_POSES} poses / "
+          f"{VICTORIA_LANDMARKS} landmarks, Plaza2 {PLAZA2_STEPS} steps / "
+          f"{PLAZA2_RANGES} ranges")
+    rec = {"seconds": {}}
+    runs = [("stereo_vo_large", {}), ("victoria_park", {}),
+            ("range_isam_plaza2", {}), ("visual_isam2", {}),
+            ("visual_isam2", {"poses": TOOL_VIS_POSES,
+                              "points": TOOL_VIS_POINTS}),
+            ("pose2_m3500", {"n": 3500, "solver": "schur"}),
+            ("view_graph", {})]
+    for name, kw in runs:
+        label = name + "".join(f" --{k} {v}" for k, v in kw.items())
+        out, _, dt = _tool_run(name, dev, full, f"[27] {label}:", **kw)
+        if not out["ok"]:
+            raise RuntimeError(f"gate: [27] {label} printed FAIL")
+        rec["seconds"][label] = dt
+        print(f"[27] {label}: OK in {dt:.2f} s on the card")
+        if name == "visual_isam2" and kw:
+            rec["visual_update_ms"] = 1e3 * float(np.mean(out["update_s"]))
+            print(f"[27] {label}: {len(out['update_s'])} updates, "
+                  f"{rec['visual_update_ms']:.2f} ms an update, "
+                  f"{TOOL_VIS_POSES / out['seconds']:.2f} poses/s; error "
+                  f"{out['error']:.6f} against batch {out['batch'].error:.6f}")
+        if name == "range_isam_plaza2":
+            print(f"[27] {label}: {out['updates']} updates, "
+                  f"{PLAZA2_STEPS / out['seconds']:.1f} poses/s")
+    vo, _, dt = _tool_run("stereo_vo_large", dev, full)
+    rec["seconds"]["stereo_vo_large (second run)"] = dt
+    rec["vo_split_ms"] = _vo_split(dev, full)
+    print(f"[27] stereo_vo_large, a second run in the same process: "
+          f"{dt:.2f} s ({vo['iterations']} iterations); one dense LM try "
+          f"at {vo['values'].tangent_dim()} tangent dimensions, ms: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rec["vo_split_ms"].items()))
+    preint_ops.preint_tangent.launches = 0
+    suite, suite_lines, dt = _tool_run("parity_suite", dev, full,
+                                       "[27] parity_suite:")
+    launches = preint_ops.preint_tangent.launches
+    rec["seconds"]["parity_suite"] = dt
+    rec["launches_tools"] = launches
+    print(f"[27] parity_suite: 11 subcommands OK in {dt:.2f} s on the card; "
+          f"preint_tangent.launches = {launches}")
+    if launches <= 0:
+        raise RuntimeError("[27] combined_imu launched no preint_tangent")
+    segs = suite["combined_imu"]["segments"]
+    args = [torch.tensor(np.stack([s[i] for s in segs]), device=dev)
+            for i in range(3)]
+    bias = torch.zeros(len(segs), 6, device=dev, dtype=torch.float64)
+    covs = pre.PreintegrationParams.make_shared_u(
+        g=9.81, accel_sigma=0.02, gyro_sigma=0.002, device=dev).covs(args[0])
+    got = preint_ops.preint_tangent(*args, bias, covs)
+    ref = preint_ops.preint_tangent_ref(*args, bias, covs)
+    gap = max(float((g - r).abs().max() / r.abs().max().clamp(min=1e-300))
+              for g, r in zip(got, ref))
+    rec["preint_gap"] = gap
+    print(f"[27] preint_tangent == plain version on combined_imu's "
+          f"{len(segs)} segments of {args[0].shape[1]} samples (float64): "
+          f"{gap:.2e} of the largest entry (limit 1e-10)")
+    if not gap <= 1e-10:
+        raise RuntimeError(f"gate: [27] preint_tangent {gap}")
+
+    # card == CPU at the tests' cut sizes; every comparison runs, then any
+    # that failed raises
+    failed = []
+    cpu = torch.device("cpu")
+    cut_runs = [("stereo_vo_large", {}),
+                ("victoria_park", {"n": TOOL_CUT_VICTORIA}),
+                ("range_isam_plaza2", {"steps": TOOL_CUT_PLAZA2,
+                                       **ISAM2_CONVERGED}),
+                ("visual_isam2", ISAM2_CONVERGED),
+                ("pose2_m3500", {"n": TOOL_CUT_M3500, "solver": "dense"}),
+                ("view_graph", {})]
+    for name, kw in cut_runs:
+        t1 = time.perf_counter()
+        outs, lines = [], []
+        for d in (dev, cpu):
+            o, ln, _ = _tool_run(name, d, cut, **kw)
+            outs.append(tool_numbers(name, o))
+            lines.append(ln)
+        bad = tool_lines_gap(lines[0], lines[1],
+                             VIEW_GRAPH_LOOSE if name == "view_graph"
+                             else ())
+        gaps = tool_record_gap(name, *outs)
+        worst = ", ".join(f"{w} {g:.2e} (limit {lim:g})"
+                          for w, g, lim in gaps)
+        print(f"[27] {name} card == CPU at the tests' cut size "
+              f"({_seconds_since(t1):.1f} s): lines "
+              f"{'equal' if not bad else bad}; {worst}")
+        if bad or any(not g <= lim for _, g, lim in gaps):
+            failed.append(name)
+    t1 = time.perf_counter()
+    cpu_suite, cpu_lines, _ = _tool_run("parity_suite", cpu, full)
+    bad = tool_lines_gap(suite_lines, cpu_lines)
+    gap = max(_parity_gap(suite[k], cpu_suite[k]) for k in suite)
+    print(f"[27] parity_suite card == CPU ({_seconds_since(t1):.1f} s): "
+          f"lines {'equal' if not bad else bad}; records within {gap:.2e} "
+          f"of their largest entry (limit 1e-8)")
+    if bad or not gap <= 1e-8:
+        failed.append("parity_suite")
+    if failed:
+        raise RuntimeError(f"gate: [27] card != CPU: {failed}")
+    return rec
+
+
+def _vo_split(dev, full):
+    """ms of the stages of one dense LM try of stereo_vo_large at full
+    size (synchronized host clocks): linearize, assemble the normal
+    equations, factor and solve, retract and the error."""
+    cwd = os.getcwd()
+    os.chdir(full)
+    try:
+        graph, init, _ = stereo_vo_large.build(dev, say=_quiet)
+    finally:
+        os.chdir(cwd)
+    layout = Layout.of(init)
+    out = {}
+    for _ in range(2):              # the second pass is the one kept
+        lin, t_lin = _timed(lambda: linearize(graph, init), dev)
+        (H, g), t_asm = _timed(lambda: lin.assemble_dense(layout), dev)
+
+        def solve():
+            H.diagonal().add_(1e-5)
+            return torch.cholesky_solve(-g[:, None], solvers.cholesky_nan(H))
+        d, t_sol = _timed(solve, dev)
+        _, t_err = _timed(lambda: graph.error(init.retract(
+            layout.unflatten(d[:, 0]))), dev)
+        out = {"linearize": 1e3 * t_lin, "assemble": 1e3 * t_asm,
+               "factor+solve": 1e3 * t_sol, "retract+error": 1e3 * t_err}
+    return out
+
+
+def tools_child(tmp):
+    """Phase 27 in an eighth process beside phases 16-17; its record to
+    TMP/tools.json. Two CPU threads: the card == CPU half runs the tools
+    on the CPU."""
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    rec = phase_tools(config.device("cuda"), tmp)
+    rec["child_seconds"] = _seconds_since(t0)
+    print(f"[clock] phase 27's process: {rec['child_seconds']:.1f} s")
+    with open(f"{tmp}/tools.json", "w") as f:
+        json.dump(rec, f)
 
 
 def dist_child(tmp):
@@ -3602,6 +4225,10 @@ def main():
             print(f"[26] (b) {DIST_RANKS} ranks on one card: final error "
                   f"{dist_rec['err_final']:.6g} at {dist_rec['it_s']:.3f} "
                   f"it/s; phase 5, one process: {ba_error:.6g}")
+            join_child(children[6])
+            clock("27 (the seven tools)")
+            with open(f"{tmp}/tools.json") as f:
+                tools_rec = json.load(f)
         finally:
             for _, proc, _ in children:
                 if proc.poll() is None:
@@ -3634,7 +4261,10 @@ def main():
          "launches_from": f"phase 17, the {VIO_STREAM_FIXES}-fix IMU + GPS "
                           f"ISAM2 stream, a segment a launch; the times are "
                           f"of that launch (phase 14), batch_launch's of "
-                          f"phase 14's 2000 segments, phase 16's shape"},
+                          f"phase 14's 2000 segments, phase 16's shape",
+         "launches_tools": tools_rec["launches_tools"],
+         "launches_tools_from": "phase 27, tools/parity_suite.py on the "
+                                "card (combined_imu: a launch a keyframe)"},
         {"name": "preint_rotation", "route": "cuda",
          "source": PREINT_R_SOURCE, "replaces": PREINT_R_REPLACES,
          "launches": rotation_launches, **rotation_record,
@@ -3658,6 +4288,8 @@ if __name__ == "__main__":
             hybrid_child(sys.argv[3])
         elif sys.argv[2] == "dist":
             dist_child(sys.argv[3])
+        elif sys.argv[2] == "tools":
+            tools_child(sys.argv[3])
         else:
             parity_child(sys.argv[3])
     else:

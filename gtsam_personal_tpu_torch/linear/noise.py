@@ -192,11 +192,12 @@ def error(noise: NoiseModel, r):
     sq = (rw * rw).sum(-1)
     if noise.robust == "none":
         return 0.5 * sq.sum()
-    # The JAX package adds 1e-300 under the root, which is zero in float32
-    # and below the rounding of any float64 sum that is not itself zero; a
-    # plain root gives the same value, and this function is not
-    # differentiated.
-    return robust_loss(noise.robust, torch.sqrt(sq), noise.k).sum()
+    # 1e-300 under the root, as in the JAX package: in float64 a zero row
+    # gets e = 1e-150, not 0, so a row whose tuning constant k is 0 (an
+    # ISAM2 engine's capacity padding) adds rho(1e-150 / 0) = 0 to the
+    # error, where e / k = 0 / 0 would make it NaN. In float32 the
+    # constant rounds to 0, in both packages.
+    return robust_loss(noise.robust, torch.sqrt(sq + 1e-300), noise.k).sum()
 
 
 # -- m-estimators (reference: linear/LossFunctions.h:66-555) -----------------

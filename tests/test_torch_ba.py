@@ -128,7 +128,14 @@ def test_port_imports_no_jax():
             "gtsam_personal_tpu_torch.parallel.dist_ba",
             "gtsam_personal_tpu_torch.parallel.dist_ba_pack",
             "gtsam_personal_tpu_torch.parallel.ba_sharded",
-            "gtsam_personal_tpu_torch.parallel.dist_schur"} <= set(mods)
+            "gtsam_personal_tpu_torch.parallel.dist_schur",
+            "gtsam_personal_tpu_torch.tools.stereo_vo_large",
+            "gtsam_personal_tpu_torch.tools.victoria_park",
+            "gtsam_personal_tpu_torch.tools.range_isam_plaza2",
+            "gtsam_personal_tpu_torch.tools.visual_isam2",
+            "gtsam_personal_tpu_torch.tools.pose2_m3500",
+            "gtsam_personal_tpu_torch.tools.view_graph",
+            "gtsam_personal_tpu_torch.tools.parity_suite"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
