@@ -213,11 +213,17 @@ kernels are timed before the other processes start or after they end:
      iterations, its convergence flag read every 8); seconds a try, the
      split by CUDA events (linearize, preconditioner, PCG, error), PCG
      iterations and landmark_block_solve launches a try; gates: finite,
-     decreasing, rms < 1.3 px, the kernel launched; the 29-camera float64
-     step (lambda 1, CG to 1e-12) and the error after it card == CPU to
-     1e-9; then tools/sfm_example_bal.py with both engines (float64,
-     CM_ITERS iterations) on a write_bal file of the problem, each
-     decreasing;
+     decreasing, rms < 1.3 px, the kernel launched, camera_block_solve
+     launched once before each PCG loop and once a pass of it; before
+     them, on the factors and vectors of the warm-up's first two
+     preconditioner applications, camera_block_solve and its plain version
+     (torch.cholesky_solve) each under a backward error of 1e-5 (each
+     one's distance from the float64 solve printed), and both timed: the
+     kernel by a CUDA graph, cholesky_solve by torch.profiler; the
+     29-camera float64 step (lambda 1, CG to 1e-12) and the error after it
+     card == CPU to 1e-9; then tools/sfm_example_bal.py with both
+     engines (float64, CM_ITERS iterations) on a write_bal file of the
+     problem, each decreasing;
  24. optimize_lm_jit against optimize_lm (the same Params and plan) on
      phase 7's graph in float64: final errors within 1e-9; then
      tools/hybrid_city10000.py on the stand-in of T1_city10000_04.txt
@@ -272,7 +278,9 @@ kernels are timed before the other processes start or after they end:
 The last two lines are a JSON record of the kernels ({"kernels": [...]},
 each with the launch count from its main path, named in its
 `launches_from`; landmark_block_solve adds `launches_dist`, phase 26's;
-preint_tangent `launches_tools`, phase 27's) and {"ok": true, "device":
+preint_tangent `launches_tools`, phase 27's; camera_block_solve's main
+path is phase 23, and it adds `launches_pack`, phase 5's) and {"ok":
+true, "device":
 {...}}.
 """
 
@@ -326,7 +334,8 @@ from gtsam_personal_tpu_torch.nonlinear.incremental import (
 from gtsam_personal_tpu_torch.ops import _build, chain
 from gtsam_personal_tpu_torch.ops import preintegration as preint_ops
 from gtsam_personal_tpu_torch.ops.block_solve import (
-    landmark_block_solve, landmark_block_solve_ref)
+    camera_block_solve, camera_block_solve_ref, landmark_block_solve,
+    landmark_block_solve_ref)
 from gtsam_personal_tpu_torch.ops.chain import chain_factorize
 from gtsam_personal_tpu_torch.parallel import (ba_sharded, bootstrap, dist_ba,
                                                dist_ba_pack, dist_schur)
@@ -401,6 +410,8 @@ PREINT_T_SOURCE = "gtsam_personal_tpu_torch/csrc/preint_tangent.cu"
 PREINT_T_REPLACES = "gtsam_personal_tpu/navigation/preintegration.py:112"
 PREINT_R_SOURCE = "gtsam_personal_tpu_torch/csrc/preint_rotation.cu"
 PREINT_R_REPLACES = "gtsam_personal_tpu/navigation/preintegration.py:171"
+CAMERA_SOURCE = "gtsam_personal_tpu_torch/csrc/camera_block_solve.cu"
+CAMERA_REPLACES = "gtsam_personal_tpu/sfm/ba.py:494"
 PREINT_S, PREINT_N = 2000, 200      # the batch path's launch: 2000 fixes
 # one AHRS window of 10 s at 200 Hz: preint_rotation's rounds of 256 samples
 # carried 8 times
@@ -557,6 +568,15 @@ def block_solve_bound(P, itemsize):
         "operations"
 
 
+def camera_bound(C, itemsize):
+    """(bound_ms, what) of one camera block solve: its bytes (81 entries
+    of the factor, 9 of r and 9 of z a camera) over the HBM rate."""
+    nbytes = (81 + 18) * C * itemsize
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            f"bytes: {nbytes / 1e6:.3f} MB at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+
 def phase_kernel(dev):
     """Kernel == plain version on the card; returns the kernel's record at
     P = 156000 in float32: max_abs_err, the device times ms, plain_ms and
@@ -660,6 +680,7 @@ def phase_main(dev):
 
     torch.cuda.reset_peak_memory_stats()
     landmark_block_solve.launches = 0
+    camera_block_solve.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, lam, err = ba_pack.ba_lm_run_pk(state, obs, pl, 1e-3, err0,
@@ -667,6 +688,7 @@ def phase_main(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = landmark_block_solve.launches
+    camera_launches = camera_block_solve.launches
     err_final = float(err)
     rms = float(np.sqrt(2.0 * err_final / pl.M))
     print(f"[5] error {err_init:.6g} -> {err_final:.6g}, rms {rms:.4f} px, "
@@ -674,7 +696,8 @@ def phase_main(dev):
     print(f"[5] {iters} timed LM iterations (cg={cg}) in {dt:.4f} s: "
           f"{iters / dt:.3f} it/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
-          f"landmark_block_solve.launches = {launches}")
+          f"landmark_block_solve.launches = {launches}, "
+          f"camera_block_solve.launches = {camera_launches}")
     if not np.isfinite(err_final):
         raise RuntimeError(f"gate: non-finite BA error {err_final}")
     if not err_final < err_init:
@@ -682,10 +705,11 @@ def phase_main(dev):
                            f"{err_final}")
     if not rms < 1.3:
         raise RuntimeError(f"gate: rms reprojection {rms:.4f} px >= 1.3 px")
-    if launches <= 0:
-        raise RuntimeError("the main path launched no landmark_block_solve "
-                           "kernel")
-    return launches, err_final
+    if launches <= 0 or camera_launches <= 0:
+        raise RuntimeError(f"the main path launched {launches} "
+                           f"landmark_block_solve and {camera_launches} "
+                           f"camera_block_solve kernels")
+    return launches, camera_launches, err_final
 
 
 def _pose_graph_run(graph, initial, plan, lam0, n_iters):
@@ -3220,6 +3244,9 @@ def phase_solver_comparer(dev, tmp):
 
 # phase 23: the camera-major engine's run on phase 5's problem
 CM_ITERS = 10
+# the componentwise backward error a float32 substitution must stay under
+# (its bound is ~(2 * 9 + 1) * 6e-8 = 1.1e-6)
+CAMERA_BACKWARD_TOL = 1e-5
 # phase 24: lines of the timed hybrid stream (the example's default is 150)
 HYBRID_TIMED_LINES = 500
 
@@ -3257,6 +3284,90 @@ class _Split:
         return out
 
 
+def _backward_err(Ls, r, z):
+    """Componentwise backward error of z as a solution of L L^T z = r, the
+    largest over cameras and entries, in float64: |L L^T z - r| over
+    |L| |L^T| |z| + |r|. Unlike the distance from an exact solve it does
+    not grow with a block's condition; a wrong substitution reads ~1e-2 to
+    1."""
+    L = Ls.double().tril()
+    zc, rc = z.double().T[..., None], r.double().T[..., None]
+    res = L @ (L.mT @ zc) - rc
+    den = L.abs() @ (L.mT.abs() @ zc.abs()) + rc.abs()
+    return (res.abs() / den.clamp(min=torch.finfo(den.dtype).tiny)).max(
+        ).item()
+
+
+def cm_camera_check(state, obs, layout):
+    """The camera-major engine's warm-up iteration with its first two
+    preconditioner applications kept (the right-hand side and the first
+    PCG residual); on those factors and vectors (C = 1723, float32)
+    camera_block_solve is held against its plain version,
+    torch.cholesky_solve: each one's backward error under
+    CAMERA_BACKWARD_TOL, and the distance of each from the float64 solve
+    printed. Then both are timed on the PCG residual. Returns the kernel's
+    record."""
+    seen = []
+
+    def keep(Ls, r):
+        if len(seen) < 2:
+            seen.append((Ls, r))
+        return camera_block_solve(Ls, r)
+    ba.camera_block_solve = keep
+    try:
+        ba.optimize_ba(state, obs, layout, max_iterations=1)   # warm-up
+    finally:
+        ba.camera_block_solve = camera_block_solve
+    if len(seen) != 2:
+        raise RuntimeError(f"[23] the warm-up applied the preconditioner "
+                           f"{len(seen)} times")
+    checks = []
+    for what, (Ls, r) in zip(("right-hand side", "PCG residual"), seen):
+        z = camera_block_solve(Ls, r)
+        plain = camera_block_solve_ref(Ls, r)
+        exact = camera_block_solve_ref(Ls.double(), r.double())
+        scale = exact.abs().max().item()
+        row = {"backward_err": _backward_err(Ls, r, z),
+               "backward_err_plain": _backward_err(Ls, r, plain),
+               "rel_err": (z.double() - exact).abs().max().item() / scale,
+               "rel_err_plain": (plain.double() - exact).abs().max().item()
+               / scale,
+               "rel_gap": (z - plain).abs().max().item() / scale}
+        checks.append(row)
+        print(f"[23] camera_block_solve on the engine's factors, {what} "
+              f"(C = {Ls.shape[0]}, float32): backward error kernel "
+              f"{row['backward_err']:.3e}, cholesky_solve "
+              f"{row['backward_err_plain']:.3e} (limit "
+              f"{CAMERA_BACKWARD_TOL:g}); from the float64 solve, of its "
+              f"largest entry: kernel {row['rel_err']:.3e}, cholesky_solve "
+              f"{row['rel_err_plain']:.3e}, kernel - cholesky_solve "
+              f"{row['rel_gap']:.3e}")
+        if not (row["backward_err"] <= CAMERA_BACKWARD_TOL
+                and row["backward_err_plain"] <= CAMERA_BACKWARD_TOL):
+            raise RuntimeError(f"gate: [23] camera_block_solve, {what}: "
+                               f"{row}")
+    Ls, r = seen[1]
+
+    def kernel():
+        return camera_block_solve(Ls, r)
+    ms = _time_ms(kernel)
+    device_ms = _graph_ms(kernel, 20)
+    plain_ms, n_p = device_ms_per_call(
+        lambda: camera_block_solve_ref(Ls, r), 200)
+    bound_ms, what = camera_bound(Ls.shape[0], 4)
+    print(f"[23] camera_block_solve float32 C = {Ls.shape[0]}: "
+          f"{ms * 1e3:.2f} us a call (CUDA events around 200 calls), device "
+          f"{device_ms * 1e3:.2f} us (a CUDA graph of 20); cholesky_solve "
+          f"{plain_ms * 1e3:.2f} us of device time a call in {n_p:g} "
+          f"operations (torch.profiler, 200 calls); bound "
+          f"{bound_ms * 1e3:.2f} us ({what}), "
+          f"{100 * bound_ms / device_ms:.1f}% of the device's time")
+    return {"max_backward_err": max(c["backward_err"] for c in checks),
+            "checks": checks, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_model": what, "library_ms": None}
+
+
 def phase_cm(dev, tmp):
     """The camera-major engine (sfm/ba.py:optimize_ba) at full size in
     float32, its card == CPU check and tools/sfm_example_bal.py with both
@@ -3267,9 +3378,10 @@ def phase_cm(dev, tmp):
     err_init = float(ba.ba_error(state, obs))
     print(f"[23] problem C={layout.C} P={layout.P} M={layout.M} built in "
           f"{_seconds_since(t0):.1f} s; initial error {err_init:.6g}")
-    ba.optimize_ba(state, obs, layout, max_iterations=1)   # warm-up
+    camera_record = cm_camera_check(state, obs, layout)
     split = _Split()
     landmark_block_solve.launches = 0
+    camera_block_solve.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, err, its = ba.optimize_ba(state, obs, layout, max_iterations=CM_ITERS,
@@ -3277,8 +3389,13 @@ def phase_cm(dev, tmp):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = landmark_block_solve.launches
+    camera_launches = camera_block_solve.launches
     tries = len(split.iterations)
     cg = [int(k) for k in split.iterations]
+    # one application before PCG's loop and one each pass of it; the loop
+    # reads its flag every 8 passes, so it runs on to the next multiple of
+    # 8 past convergence, at most cg_maxiter (100)
+    camera_expected = sum(1 + min(100, 8 * math.ceil(k / 8)) for k in cg)
     ms = split.totals()
     rms = float(np.sqrt(2.0 * err / layout.M))
     print(f"[23] optimize_ba (lambda0 1e-4, cg_maxiter 100, tol 1e-6): "
@@ -3292,7 +3409,9 @@ def phase_cm(dev, tmp):
     print(f"[23] PCG iterations a try: mean {np.mean(cg):.1f}, "
           f"min {min(cg)}, max {max(cg)}; landmark_block_solve launches "
           f"{launches} ({launches / tries:.1f} a try: 2 + 1 a PCG "
-          f"iteration)")
+          f"iteration); camera_block_solve launches {camera_launches} "
+          f"({camera_launches / tries:.1f} a try; expected "
+          f"{camera_expected}: 1 + the loop's passes)")
     if not np.isfinite(err):
         raise RuntimeError(f"gate: [23] non-finite error {err}")
     if not err < err_init:
@@ -3304,6 +3423,9 @@ def phase_cm(dev, tmp):
     if launches <= 0:
         raise RuntimeError("[23] the camera-major engine launched no "
                            "landmark_block_solve kernel")
+    if camera_launches != camera_expected:
+        raise RuntimeError(f"gate: [23] camera_block_solve launched "
+                           f"{camera_launches} times, not {camera_expected}")
     del state, obs, layout
 
     small = synthetic.make_skewed_problem(
@@ -3338,7 +3460,7 @@ def phase_cm(dev, tmp):
         if not rec["final"] < rec["initial"]:
             raise RuntimeError(f"gate: [23] sfm_example_bal --engine "
                                f"{engine} did not decrease")
-    return launches, tries
+    return launches, tries, camera_launches, camera_record
 
 
 def phase_lm_jit(dev):
@@ -4170,7 +4292,7 @@ def main():
     phase_build()
     record = phase_kernel(dev)
     phase_parity(dev)
-    launches, ba_error = phase_main(dev)
+    launches, pack_camera_launches, ba_error = phase_main(dev)
     phase_pose_parity(dev)
     phase_se3_parity(dev)
     batch_optimum, pose_its = phase_pose_main(dev)
@@ -4191,7 +4313,8 @@ def main():
     phase_ml(dev, batch_optimum, pose_its)
     clock(21)
     with tempfile.TemporaryDirectory() as tmp:
-        cm_launches, cm_tries = phase_cm(dev, tmp)
+        cm_launches, cm_tries, camera_launches, camera_record = phase_cm(
+            dev, tmp)
     clock(23)
     phase_lm_jit(dev)
     clock("24 (optimize_lm_jit)")
@@ -4270,7 +4393,15 @@ def main():
          "launches": rotation_launches, **rotation_record,
          "launches_from": "phase 14: integrate_manifold_batch and "
                           "integrate_ahrs_batch; no path of the tools runs "
-                          "the manifold backend or AHRS"}]}))
+                          "the manifold backend or AHRS"},
+        {"name": "camera_block_solve", "route": "cuda",
+         "source": CAMERA_SOURCE, "replaces": CAMERA_REPLACES,
+         "launches": camera_launches, **camera_record,
+         "launches_from": f"phase 23, the camera-major engine's {CM_ITERS} "
+                          f"iterations ({cm_tries} tries); the times are of "
+                          f"its PCG residual",
+         "launches_pack": pack_camera_launches,
+         "launches_pack_from": "phase 5, the timed BA LM run"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

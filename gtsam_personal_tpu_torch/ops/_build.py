@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
     "landmark_block_solve.cu", "chain_factorize.cu", "preint_tangent.cu",
-    "preint_rotation.cu"))
+    "preint_rotation.cu", "camera_block_solve.cu"))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 # -fmad=false: see csrc/landmark_block_solve.cu, "Arithmetic order"; it holds
 # for every source, and csrc/chain_factorize.cu calls fma() where it wants one.
@@ -45,6 +45,9 @@ _ENTRY_POINTS = {
     # stream (-1: a mode that does not exist)
     "preint_rotation_f32": [_INT] + [_VOID_P] * 12 + [_I64, _I64, _VOID_P],
     "preint_rotation_f64": [_INT] + [_VOID_P] * 12 + [_I64, _I64, _VOID_P],
+    # Ls, r, z, C, stream
+    "camera_block_solve_f32": [_VOID_P] * 3 + [_I64, _VOID_P],
+    "camera_block_solve_f64": [_VOID_P] * 3 + [_I64, _VOID_P],
 }
 
 

@@ -31,7 +31,9 @@ it keeps 0 * inf from making a NaN.
 
 The landmark solves (right-hand side, every Schur matvec of the CG loop,
 back-substitution) go through ops/block_solve.py:landmark_block_solve, the
-hand-written CUDA kernel on the card and its plain version on the CPU.
+hand-written CUDA kernel on the card and its plain version on the CPU; the
+camera block-Jacobi preconditioner goes through
+ops/block_solve.py:camera_block_solve in the same way.
 """
 
 from typing import NamedTuple
@@ -42,7 +44,8 @@ import torch
 from gtsam_personal_tpu_torch import config  # noqa: F401  (TF32 off)
 from gtsam_personal_tpu_torch.geometry import cameras as cam_geo, se3
 from gtsam_personal_tpu_torch.linear.noise import robust_loss, robust_weight
-from gtsam_personal_tpu_torch.ops.block_solve import landmark_block_solve
+from gtsam_personal_tpu_torch.ops.block_solve import (
+    camera_block_solve, landmark_block_solve)
 from gtsam_personal_tpu_torch.sfm import ba_kernels as bk
 from gtsam_personal_tpu_torch.sfm.ba_layout import BALayout, build_layout
 from gtsam_personal_tpu_torch.sfm.bal import BalProblem
@@ -387,10 +390,12 @@ def _solve_from_lin(pl: BALayout, lin, red, lam, cg_maxiter=100,
     Gc = (T1[:, None, 0] * W[None, :, 0] + T1[:, None, 1] * W[None, :, 1]
           + T1[:, None, 2] * W[None, :, 2])               # [9, 9, M]
     blocks = (Hcc - _cam_sum(pl, Gc.reshape(81, M))).T.reshape(pl.C, 9, 9)
-    Ls = bk.safe_chol_blocks(blocks, lam)
+    # the factors come in a strided layout; the camera block solve takes
+    # them row-major, copied once here for the whole PCG loop
+    Ls = bk.safe_chol_blocks(blocks, lam).contiguous()
 
     def precond(x):                         # [9, C] -> [9, C]
-        return torch.cholesky_solve(x.T[..., None], Ls)[..., 0].T
+        return camera_block_solve(Ls, x)
 
     if probe is not None:
         probe("precond")

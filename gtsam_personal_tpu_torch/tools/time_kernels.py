@@ -1,8 +1,8 @@
-"""Time the chain and preintegration kernels on the card, each held
-against its plain version first, beside its bound.
+"""Time the chain, preintegration and camera block-solve kernels on the
+card, each held against its plain version first, beside its bound.
 
     python -m gtsam_personal_tpu_torch.tools.time_kernels [--out FILE]
-        [--kernels chain,tangent,rotation]
+        [--kernels chain,tangent,rotation,camera]
 
 Launches (the shapes of chip_smoke.py's phases 8, 14 and 17):
 `chain_factorize` at d = 3, 4 and 6 in float32 at capacity 16384 and at
@@ -24,6 +24,18 @@ distance from the plain float64, floor 1e-4, as phase 14). Prints each
 kernel's `-Xptxas -v` lines, one line per launch and the card's name and
 power limit, and writes the records as JSON to FILE.
 
+`camera_block_solve` runs at C = 1723 (the BAL Ladybug-1723 problem's
+cameras) on well-conditioned SPD blocks, held against
+`torch.cholesky_solve`, the library call it replaces, run in float64 on
+the same inputs: to 1e-12 of the largest entry in float64 and 1e-5 in
+float32 (`check_err_rel`; the float32 `cholesky_solve`'s own distance is
+its record's). Both are timed the same
+way: `device_ms` from a CUDA graph of 20 calls (`cholesky_solve`, whose
+MAGMA path may not be captured, from a `torch.profiler` pass over 200
+calls; its graph is tried last), `host_us` the host's time a call over
+1000 calls issued with no synchronize among them, and `ms` by CUDA
+events.
+
 To compare two trees on one card, run this file from one tree with the
 other tree's root first on PYTHONPATH: the package, and the kernels it
 builds, are then the other tree's, while the shapes, timer and bounds are
@@ -33,12 +45,15 @@ those of the chip_smoke.py beside this file.
 import argparse
 import importlib.util
 import json
+import time
 from pathlib import Path
 
 import torch
 
 from gtsam_personal_tpu_torch import config
 from gtsam_personal_tpu_torch.ops import _build, chain
+from gtsam_personal_tpu_torch.ops.block_solve import (
+    camera_block_solve, camera_block_solve_ref)
 
 
 def _chip_smoke():
@@ -57,7 +72,9 @@ PREINT_CASES = (1, 2000)
 ROTATION_CASES = tuple((m, S, torch.float64) for m in ("manifold", "ahrs")
                        for S in PREINT_CASES) + (
     ("manifold", 2000, torch.float32), ("ahrs", 2000, torch.float32))
-KERNELS = ("chain", "tangent", "rotation")
+KERNELS = ("chain", "tangent", "rotation", "camera")
+CAMERA_C = 1723
+CAMERA_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
 def _rel_err(got, ref):
@@ -98,12 +115,85 @@ def time_rotation(cs, dev):
     return recs
 
 
+def _host_us(fn, n=1000):
+    """Host microseconds a call: n calls issued back to back, the clock
+    read before the synchronize that follows them."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / n
+
+
+def _camera_inputs(dtype, dev, seed=0):
+    """Lower factors [C, 9, 9] of well-conditioned SPD blocks and
+    right-hand sides [9, C]."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    A = torch.randn(CAMERA_C, 9, 18, generator=g, dtype=torch.float64)
+    H = A @ A.mT / 18 + torch.eye(9, dtype=torch.float64)
+    r = torch.randn(9, CAMERA_C, generator=g, dtype=torch.float64)
+    Ls = torch.linalg.cholesky(H)
+    return (Ls.to(dev, dtype).contiguous(), r.to(dev, dtype).contiguous())
+
+
+def time_camera(cs, dev):
+    """The records of camera_block_solve and torch.cholesky_solve at C =
+    CAMERA_C, float32 and float64."""
+    recs = []
+    graphs = []
+    for dtype in (torch.float32, torch.float64):
+        Ls, r = _camera_inputs(dtype, dev)
+        ref = torch.cholesky_solve(r.double().T[..., None],
+                                   Ls.double())[..., 0].T
+        scale = ref.abs().max().item()
+        before = camera_block_solve.launches
+        z = camera_block_solve(Ls, r)
+        if camera_block_solve.launches != before + 1:
+            raise RuntimeError("camera_block_solve launched no kernel")
+        rel = (z.double() - ref).abs().max().item() / scale
+        lib = camera_block_solve_ref(Ls, r)
+        lib_rel = (lib.double() - ref).abs().max().item() / scale
+        if not rel <= CAMERA_RTOL[dtype]:
+            raise RuntimeError(f"camera_block_solve {dtype}: {rel} "
+                               f"(cholesky_solve {lib_rel})")
+        bound_ms, what = cs.camera_bound(CAMERA_C, dtype.itemsize)
+        fns = {"camera_block_solve": lambda: camera_block_solve(Ls, r),
+               "cholesky_solve": lambda: camera_block_solve_ref(Ls, r)}
+        for name, fn in fns.items():
+            ms = cs._time_ms(fn, 200)
+            host_us = _host_us(fn)
+            prof_ms, events = cs.device_ms_per_call(fn, 200)
+            rec = {"kernel": name, "C": CAMERA_C, "dtype": str(dtype)[6:],
+                   "ms": ms, "host_us": host_us,
+                   "profiler_device_ms": prof_ms,
+                   "profiler_events_per_call": events,
+                   "check_err_rel": rel if name == "camera_block_solve"
+                   else lib_rel, "bound_ms": bound_ms, "bound": what}
+            if name == "camera_block_solve":
+                rec["device_ms"] = cs._graph_ms(fn, 20)
+                rec["bound_share"] = bound_ms / rec["device_ms"]
+            else:
+                graphs.append((rec, fn))
+            recs.append(rec)
+    # last, as a capture that fails may leave the stream's state behind
+    for rec, fn in graphs:
+        try:
+            rec["device_ms"] = cs._graph_ms(fn, 20)
+        except RuntimeError as e:       # recorded: MAGMA may not capture
+            rec["graph_error"] = f"{type(e).__name__}: {e}"[:300]
+    return recs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default=",".join(KERNELS),
-                    help="which of chain, tangent, rotation to time")
+                    help="which of chain, tangent, rotation, camera to time")
     args = ap.parse_args()
     which = args.kernels.split(",")
     if not set(which) <= set(KERNELS):
@@ -114,7 +204,8 @@ def main():
     path = _build.build()
     for line in path.with_suffix(".so.log").read_text().splitlines():
         if any(k in line for k in ("chain_factorize", "preint_tangent",
-                                   "preint_rotation", "registers", "stack")):
+                                   "preint_rotation", "camera_block_solve",
+                                   "registers", "stack")):
             print(f"ptxas: {line.strip()}")
     recs = []
     for d, dtype, cap in CHAIN_CASES if "chain" in which else ():
@@ -156,6 +247,8 @@ def main():
                      "bound_share": bound_ms / ms, "bound": what})
     if "rotation" in which:
         recs += time_rotation(cs, dev)
+    if "camera" in which:
+        recs += time_camera(cs, dev)
     for r in recs:
         print(f"{args.label} {json.dumps(r)}")
     print(card)

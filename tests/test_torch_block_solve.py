@@ -2,10 +2,19 @@
 kernel (run in interpret mode, as tests/test_pallas_ops.py runs it), the
 wrapper's checks and dispatch, the build plumbing, and its three call sites
 in the BA engine. The CUDA kernel itself runs only on a card; chip_smoke.py
-holds it against the plain version there."""
+holds it against the plain version there.
 
+The camera block solve (the BA engine's block-Jacobi preconditioner): the
+wrapper's CPU path against `torch.cholesky_solve`, its checks, the kernel's
+arithmetic compiled for the host, and its call sites in the engine. On the
+card `tools/time_kernels.py --kernels camera` holds the kernel against
+`torch.cholesky_solve`."""
+
+import ctypes
 import os
+import shutil
 import stat
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,8 +24,10 @@ import torch
 from gtsam_personal_tpu.ops import pallas_kernels as pk
 from gtsam_personal_tpu_torch.ops import _build
 from gtsam_personal_tpu_torch.ops.block_solve import (
-    landmark_block_solve, landmark_block_solve_ref)
-from gtsam_personal_tpu_torch.sfm import ba, ba_pack, synthetic
+    camera_block_solve, camera_block_solve_ref, landmark_block_solve,
+    landmark_block_solve_ref)
+from gtsam_personal_tpu_torch.sfm import ba, ba_kernels as bk, ba_pack
+from gtsam_personal_tpu_torch.sfm import synthetic
 
 
 def _blocks(P, rows, shift, seed):
@@ -162,3 +173,142 @@ def test_engine_solves_landmarks_at_three_sites(monkeypatch):
     ba_pack._solve_from_lin(pl, lin, red, lam, cg_maxiter=3)
     assert len(seen) == 3 + 2
     assert all(H is red[0] and lm == 1e-3 + 1e-10 for H, lm in seen)
+
+
+# --- the camera block solve -------------------------------------------------
+
+def _camera_factors(C, dtype, seed, bad=()):
+    """Lower factors [C, 9, 9] from bk.safe_chol_blocks of random SPD
+    blocks (the cameras in `bad` get an indefinite block, so they take its
+    diagonal fallback) and right-hand sides [9, C]."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(C, 9, 14))
+    H = A @ A.transpose(0, 2, 1) / 14 + 0.1 * np.eye(9)
+    for c in bad:
+        H[c] = -np.eye(9) + 0.01 * rng.normal(size=(9, 9))
+    H = torch.as_tensor(H, dtype=dtype)
+    Ls = bk.safe_chol_blocks(H, torch.tensor(1e-3, dtype=dtype))
+    return Ls.contiguous(), torch.as_tensor(rng.normal(size=(9, C)),
+                                            dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_camera_wrapper_on_cpu_is_cholesky_solve(dtype):
+    """Bit for bit, a fallback (diagonal) factor among the blocks."""
+    Ls, r = _camera_factors(37, dtype, 7, bad=(5,))
+    assert torch.equal(Ls[5], torch.diag(torch.diagonal(Ls[5])))
+    assert not torch.equal(Ls[4], torch.diag(torch.diagonal(Ls[4])))
+    before = camera_block_solve.launches
+    z = camera_block_solve(Ls, r)
+    assert camera_block_solve.launches == before     # no kernel launched
+    assert z.dtype == dtype and z.shape == (9, 37)
+    assert torch.equal(z, torch.cholesky_solve(r.T[..., None], Ls)[..., 0].T)
+    assert torch.equal(z, camera_block_solve_ref(Ls, r))
+
+
+def _camera_bad_inputs():
+    Ls = torch.eye(9, dtype=torch.float64).repeat(4, 1, 1)
+    r = torch.ones(9, 4, dtype=torch.float64)
+    return {
+        "dtype_mismatch": ((Ls, r.float()), TypeError),
+        "int_dtype": ((Ls.long(), r.long()), TypeError),
+        "not_a_tensor": ((Ls, r.numpy()), TypeError),
+        "shape_Ls": ((Ls[:, :8], r), ValueError),
+        "shape_Ls_2d": ((Ls[0], r), ValueError),
+        "shape_r": ((Ls, r[:, :3]), ValueError),
+        "r_camera_major": ((Ls, r.T.contiguous()), ValueError),
+        "non_contiguous_Ls": ((Ls.transpose(1, 2), r), ValueError),
+        "non_contiguous_r": ((Ls, r.T.contiguous().T), ValueError),
+        "device_mismatch": ((Ls, r.to("meta")), ValueError),
+        "no_kernel_for_device": ((Ls.to("meta"), r.to("meta")), ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_camera_bad_inputs()))
+def test_camera_wrapper_rejects(case):
+    args, exc = _camera_bad_inputs()[case]
+    with pytest.raises(exc):
+        camera_block_solve(*args)
+
+
+_CAMERA_HARNESS = r"""
+#include "camera_block_solve.cu"
+
+template <typename T>
+static int host_solve(const void* Ls, const void* r, void* z, int64_t C) {
+  for (int64_t i = 0; i < C; ++i)
+    cbs::solve_block(static_cast<const T*>(Ls) + i * cbs::kNN,
+                     static_cast<const T*>(r) + i, static_cast<T*>(z) + i, C);
+  return 0;
+}
+
+extern "C" int camera_f32(const void* Ls, const void* r, void* z, int64_t C) {
+  return host_solve<float>(Ls, r, z, C);
+}
+extern "C" int camera_f64(const void* Ls, const void* r, void* z, int64_t C) {
+  return host_solve<double>(Ls, r, z, C);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_camera(tmp_path_factory):
+    """csrc/camera_block_solve.cu compiled for the host (the launch code is
+    left out without nvcc): the kernel's `solve_block`, camera by camera."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler on this host")
+    d = tmp_path_factory.mktemp("host_camera")
+    (d / "harness.cpp").write_text(_CAMERA_HARNESS)
+    lib = d / "libharness.so"
+    src = next(s for s in _build.SOURCES if s.name == "camera_block_solve.cu")
+    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-I", str(src.parent), "-o", str(lib),
+                    str(d / "harness.cpp")], check=True, timeout=120)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_arithmetic_camera(host_camera, dtype):
+    """The kernel's substitutions against torch.cholesky_solve at C = 77
+    (not a multiple of the kernel's 64 cameras a block), a fallback factor
+    among them: float64 to 1e-12 of the largest entry, float32 to 1e-5, the
+    limits the card's check holds the kernel to."""
+    Ls, r = _camera_factors(77, dtype, 8, bad=(0, 70))
+    z = torch.empty_like(r)
+    fn = host_camera.camera_f64 if dtype == torch.float64 else \
+        host_camera.camera_f32
+    rc = fn(*(ctypes.c_void_p(x.data_ptr()) for x in (Ls, r, z)),
+            ctypes.c_int64(77))
+    assert rc == 0
+    ref = camera_block_solve_ref(Ls.double(), r.double())
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    np.testing.assert_allclose(z.double().numpy(), ref.numpy(), rtol=0,
+                               atol=rtol * ref.abs().max().item())
+
+
+def test_engine_applies_camera_precond_every_iteration(monkeypatch):
+    """_solve_from_lin applies the preconditioner once before the CG loop
+    and once per iteration of a masked solve (check_every=None), always to
+    the same factors, [C, 9, 9], and a [9, C] vector."""
+    prob = synthetic.make_skewed_problem(num_cameras=12, num_points=60,
+                                         mean_track=4.0, max_track=8, seed=4)
+    state, obs = ba.state_from_bal(prob, device="cpu", dtype=torch.float64)
+    pl = ba_pack.make_pack_layout(obs, prob.num_cameras, prob.num_points)
+    lin = ba_pack.linearize_ba_pk(state, obs, pl)
+    red = ba_pack._reduce_cache(pl, lin)
+    seen = []
+
+    def spy(Ls, r):
+        seen.append((Ls, tuple(r.shape)))
+        return camera_block_solve(Ls, r)
+
+    monkeypatch.setattr(ba, "camera_block_solve", spy)
+    lam = torch.tensor(1e-3, dtype=torch.float64)
+    cg_maxiter = 5
+    ba._solve_from_lin(pl, lin, red, lam, cg_maxiter=cg_maxiter,
+                       check_every=None)
+    assert len(seen) == 1 + cg_maxiter
+    assert all(Ls is seen[0][0] for Ls, _ in seen)
+    assert tuple(seen[0][0].shape) == (12, 9, 9)
+    assert all(shape == (9, 12) for _, shape in seen)
